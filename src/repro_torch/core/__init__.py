@@ -1,0 +1,45 @@
+"""Core of the PyTorch port: the Δ-stepping engine, its backends, the
+value-word packing and the host oracles."""
+from repro_torch.core.backends import (
+    EdgeBackend,
+    EllBackend,
+    FusedBackend,
+    PallasEllBackend,
+    RelaxBackend,
+    edge_sweep,
+    make_backend,
+    scan_bucket,
+)
+from repro_torch.core.delta_stepping import (
+    P2P_MODES,
+    POLICIES,
+    DeltaConfig,
+    SSSPResult,
+    pred_argmin,
+)
+from repro_torch.core.ref import (
+    bellman_ford,
+    dijkstra,
+    validate_pred_tree,
+    walk_pred_tree,
+)
+
+__all__ = [
+    "P2P_MODES",
+    "POLICIES",
+    "DeltaConfig",
+    "SSSPResult",
+    "edge_sweep",
+    "pred_argmin",
+    "RelaxBackend",
+    "EdgeBackend",
+    "EllBackend",
+    "FusedBackend",
+    "PallasEllBackend",
+    "make_backend",
+    "scan_bucket",
+    "dijkstra",
+    "bellman_ford",
+    "validate_pred_tree",
+    "walk_pred_tree",
+]
