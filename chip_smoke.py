@@ -358,6 +358,8 @@ def main() -> int:
     log(f"[main] launches over the main path: {json.dumps(launches)}")
     check(per_solve[("fused", "argmin")]["frontier_relax"] > 0,
           "fused solve did not launch frontier_relax")
+    check(per_solve[("fused", "argmin")]["bucket_scan"] > 0,
+          "fused solve did not launch bucket_scan")
     check(per_solve[("pallas", "argmin")]["bucket_scan"] > 0,
           "pallas solve did not launch bucket_scan")
     check(per_solve[("pallas", "argmin")]["ell_relax"] > 0,

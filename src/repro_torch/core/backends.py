@@ -246,14 +246,6 @@ def _ell_blocks(graph: COOGraph, delta: int, max_deg=None):
     return csr_to_ell(light, max_deg), csr_to_ell(heavy, max_deg)
 
 
-def _kernel_viable(device: torch.device) -> bool:
-    """Whether the fused step runs the CUDA kernels: when the tensors lie
-    on a CUDA device (elsewhere the twin runs, bitwise identically).
-    ``fused_next`` reads the bucket advance off a kernel step only then,
-    as the reference does on the TPU."""
-    return torch.device(device).type == "cuda"
-
-
 @dataclasses.dataclass(frozen=True)
 class EdgeBackend(RelaxBackend):
     """Edge-centric strategy: every sweep touches all |E| edges, masked
@@ -332,7 +324,7 @@ class PallasEllBackend(_FrontierCompactMixin, _PallasScanMixin,
         fidx, over = self.compact(mask)
         ell = self.light if light else self.heavy
         d = dist_of(tent, packed)
-        cand = ell_relax(fidx, d, ell.w, backend="pallas")     # (cap, D)
+        cand = ell_relax(fidx, d, ell.w)                       # (cap, D)
         rows_n = ell.nbr[fidx]
         src_ids = fidx[:, None].expand(rows_n.shape)
         if packed and self.canonical:
@@ -365,7 +357,6 @@ class FusedBackend(_FrontierCompactMixin, RelaxBackend):
     delta: int
     n: int
     cap: int
-    kernel: bool
     canonical: bool
 
     @classmethod
@@ -373,7 +364,7 @@ class FusedBackend(_FrontierCompactMixin, RelaxBackend):
         light, heavy = _ell_blocks(graph, cfg.delta, max_deg)
         return cls(light, heavy, cfg.delta, graph.n_nodes,
                    cfg.frontier_cap or graph.n_nodes,
-                   _kernel_viable(graph.device), graph_is_canonical(graph))
+                   graph_is_canonical(graph))
 
     def _fused_step(self, dist, explored, bucket_i):
         ell = self.light
@@ -398,11 +389,11 @@ class FusedBackend(_FrontierCompactMixin, RelaxBackend):
         return tent, explored, in_s, any_, count > self.cap
 
     def fused_next(self, dist, explored, bucket_i):
-        """Next-bucket min for the loop's bucket advance — the kernel's
-        scalar output where the kernel runs (bitwise the scan's)."""
-        if self.kernel:
-            return self._fused_step(dist, explored, bucket_i)[5]
-        return scan_bucket(dist, explored, bucket_i, delta=self.delta)[2]
+        """Next-bucket min for the loop's bucket advance, from the
+        ``kernels/bucket_scan`` kernel: the same scalar as a whole
+        ``frontier_relax`` step (bitwise), without its compaction and
+        row gather."""
+        return bucket_scan(dist, explored, bucket_i, delta=self.delta)[2]
 
     def sweep(self, tent, mask, bucket_i, *, light: bool, packed: bool):
         fidx, over = self.compact(mask)

@@ -6,7 +6,7 @@ from repro_torch.kernels.ell_relax.ell_relax import ell_relax_cuda
 from repro_torch.kernels.ell_relax.ref import ell_relax_ref
 
 
-def ell_relax(fidx, dist, w_ell, *, backend: str = "pallas"):
+def ell_relax(fidx, dist, w_ell):
     """Relaxation candidates for a compacted frontier.
 
     fidx: int32[cap] frontier vertex ids (n = padding sentinel).
@@ -14,11 +14,8 @@ def ell_relax(fidx, dist, w_ell, *, backend: str = "pallas"):
     w_ell: int32[n+1, D] ELL weights (row n all-INF).
     Returns int32[cap, D] candidate distances (INF where invalid).
 
-    ``backend`` keeps the reference's two kernel spellings: ``"pallas"``
-    (blocked) and ``"pallas_row"`` (row gather) both name the one CUDA
-    kernel."""
-    if backend not in ("pallas", "pallas_row"):
-        raise ValueError(f"unknown ell_relax backend {backend!r}")
+    The reference's two kernel entries (blocked and row gather) compute
+    this one function; the port has one CUDA kernel for both."""
     if dist.device.type == "cpu":
         return ell_relax_ref(fidx, dist, w_ell)
     return ell_relax_cuda(fidx, dist, w_ell)

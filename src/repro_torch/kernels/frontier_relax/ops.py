@@ -18,10 +18,9 @@ def frontier_relax(dist, explored, bucket_i, nbr, w_ell, *, delta: int,
     ``fidx`` in global ids (``base`` + local index; padding slots carry
     ``sent``, default S). ``count > cap`` is the caller's overflow flag.
 
-    A zero-width ELL block (D == 0) goes to the twin, as in the
-    reference (``repro.kernels.frontier_relax.ops``): there is no row to
-    gather."""
-    if dist.device.type == "cpu" or w_ell.shape[1] == 0:
+    A zero-width ELL block (D == 0) runs the kernel too on CUDA: its
+    scan and compaction still hold, and the row gather writes nothing."""
+    if dist.device.type == "cpu":
         return frontier_relax_ref(dist, explored, bucket_i, nbr, w_ell,
                                   delta=delta, cap=cap, base=base, sent=sent)
     return frontier_relax_cuda(dist, explored, bucket_i, nbr, w_ell,

@@ -97,3 +97,40 @@ def test_frontier_relax_kernel_matches_twin(cuda, s, deg, cap_frac, width):
     allinf = torch.full((s,), INF, dtype=torch.int32, device=cuda)
     _equal(frontier_relax_cuda(allinf, allinf, 0, nbr, w, delta=7, cap=cap),
            frontier_relax_ref(allinf, allinf, 0, nbr, w, delta=7, cap=cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 3])
+def test_dispatchers_launch_kernels_on_cuda_tensors(cuda, width):
+    """A CUDA tensor reaches the kernel through every dispatcher, the
+    zero-width ELL block of ``frontier_relax`` included."""
+    from repro_torch.kernels.bucket_scan import bucket_scan
+    from repro_torch.kernels.ell_relax import ell_relax
+    from repro_torch.kernels.frontier_relax import frontier_relax
+    s = 2000
+    rng = np.random.default_rng(width)
+    dist = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    explored = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    nbr = torch.from_numpy(rng.integers(0, s + 1, size=(s + 1, width))
+                           .astype(np.int32)).to(cuda)
+    nbr[s] = s
+    w = torch.from_numpy(rng.integers(1, 20, size=(s + 1, width))
+                         .astype(np.int32)).to(cuda)
+    w[s] = INF
+    fidx = torch.arange(64, dtype=torch.int32, device=cuda)
+    for fn, call, twin in (
+            (bucket_scan_cuda,
+             lambda: bucket_scan(dist, explored, 1, delta=7),
+             lambda: bucket_scan_ref(dist, explored, 1, delta=7)),
+            (ell_relax_cuda, lambda: (ell_relax(fidx, dist, w),),
+             lambda: (ell_relax_ref(fidx, dist, w),)),
+            (frontier_relax_cuda,
+             lambda: frontier_relax(dist, explored, 1, nbr, w, delta=7,
+                                    cap=500),
+             lambda: frontier_relax_ref(dist, explored, 1, nbr, w, delta=7,
+                                        cap=500))):
+        before = fn.launches
+        out = call()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _equal(out, twin())

@@ -4,10 +4,12 @@
 twins) and ``repro.api.Engine(g, cfg)`` (Pallas kernels in interpret
 mode, x64 for packed words) solve the same instances from fixed seeds:
 ``dist``, ``pred``, ``buckets``, ``inner_iters`` and ``overflow`` must be
-bitwise equal for every strategy × pred mode × Δ. Instances: the
-adversarial COO construction of the differential suite (zero weights on
-odd seeds, self loops, duplicate edges, a disconnected tail), one small
-Watts–Strogatz graph and one small R-MAT graph.
+bitwise equal for every strategy × pred mode × Δ on the adversarial COO
+construction of the differential suite (zero weights on odd seeds, self
+loops, duplicate edges, a disconnected tail), and for every strategy ×
+pred mode at Δ = 7 on one small Watts–Strogatz and one small R-MAT
+graph. Each case compiles its own JAX program, so the Δ axis is swept on
+the one instance that carries every adversarial feature.
 """
 import contextlib
 
@@ -72,6 +74,8 @@ def _graph(name):
 # regime); the two generator graphs have weights >= 1 (the canonical
 # word-order regime), and R-MAT keeps duplicate edges
 GRAPHS = ("adversarial", "watts_strogatz", "rmat")
+CASES = [("adversarial", d) for d in DELTAS] + [
+    ("watts_strogatz", 7), ("rmat", 7)]
 
 
 def _jax_solve(jg, source, strategy, pred_mode, delta, cap=None):
@@ -106,20 +110,19 @@ def _assert_same(ours, ref, tag):
             assert a == b, (tag, name, a, b)
 
 
-@pytest.mark.parametrize("delta", DELTAS)
+@pytest.mark.parametrize("pred_mode", PRED_MODES)
 @pytest.mark.parametrize("strategy", STRATEGIES)
-@pytest.mark.parametrize("graph", GRAPHS)
-def test_solve_bitwise_equals_reference(graph, strategy, delta):
+@pytest.mark.parametrize("graph,delta", CASES)
+def test_solve_bitwise_equals_reference(graph, delta, strategy, pred_mode):
     jg, source = _graph(graph)
     dref, _ = dijkstra(coo_from_numpy(np.asarray(jg.src), np.asarray(jg.dst),
                                       np.asarray(jg.w), jg.n_nodes), source)
-    for pred_mode in PRED_MODES:
-        tag = (graph, strategy, pred_mode, delta)
-        ours = _torch_solve(jg, source, strategy, pred_mode, delta)
-        _assert_same(ours, _jax_solve(jg, source, strategy, pred_mode, delta),
-                     tag)
-        np.testing.assert_array_equal(ours[0].astype(np.int64), dref,
-                                      err_msg=str(tag))
+    tag = (graph, strategy, pred_mode, delta)
+    ours = _torch_solve(jg, source, strategy, pred_mode, delta)
+    _assert_same(ours, _jax_solve(jg, source, strategy, pred_mode, delta),
+                 tag)
+    np.testing.assert_array_equal(ours[0].astype(np.int64), dref,
+                                  err_msg=str(tag))
 
 
 @pytest.mark.parametrize("strategy", ["ell", "pallas", "fused"])
