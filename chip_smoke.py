@@ -25,14 +25,43 @@
 4. The scale-free family: ``rmat(2**20, 16 * 2**20)`` under ``edge`` with
    the same oracle check (the ELL strategies pad every row to the
    maximum degree, which R-MAT makes huge).
-5. Times: per strategy the median solve wall time of three solves after
+5. The game-map path at full width, the repo's ``sssp-gamemap``
+   configuration: ``grid_map(3000, 3000, 0.1, seed=0)`` (9 M cells,
+   ~58 M directed edges, costs 10 / 14), Δ = 13, the first free cell as
+   source, through ``Engine(..., free_mask=free)`` on CUDA
+   (``GridPallasBackend``: the ``grid_relax`` stencil and
+   ``bucket_scan``). ``grid_relax`` against its twin on sweep inputs
+   recorded from the warm-up solve and on edge cases (1 x 1, 1 x W,
+   H x 1, 37 x 129, all-blocked, all-INF, values within 14 of INF,
+   Δ = 5 / 13 / 20); ``bucket_scan`` against its twin on scan inputs
+   recorded from the same solve (after light sweeps, after heavy
+   passes and before the first sweep). Then the path's main run, with the counters set
+   to 0 just before and read just after: ``SingleSource`` with ``dist``
+   equal to scipy's Dijkstra and ``pred`` a shortest-path tree, and
+   launches equal to ``buckets + inner_iters`` (``grid_relax``) and
+   ``2 * buckets + inner_iters`` (``bucket_scan``). Then
+   ``GridDeltaSolver`` with its default config (dist equal, and
+   ``outer_iters + inner_iters`` launches of the kernel); ``PointToPoint`` to the last free
+   cell and to a cell near the source (distance equal to the
+   single-source ``dist``, a valid path of that weight, fewer buckets
+   for the near target); ``BoundedRadius(1000)`` (the single-source
+   answer filtered at 1000); on a 512 x 512 map the grid plan bitwise
+   equal to ``edge`` (dist, pred, buckets, inner_iters); median times
+   of three of each query after warm-up; one profiled solve.
+6. Times: per strategy the median solve wall time of three solves after
    the warm-up, with host synchronisations and counters.
-6. One profiled solve per strategy (``torch.profiler``): device busy
+7. One profiled solve per strategy (``torch.profiler``): device busy
    time, idle share and the kernels that take the most device time.
    Per kernel at the main path's shapes: device time per wrapper call
-   (profiler; CUDA events over back-to-back calls where the profiler
-   sees no device time), its twin's, and its bound (the bytes this input
-   needs ÷ 3.35 TB/s, or its integer operations ÷ 67 T/s if larger).
+   and its twin's (profiler; CUDA events over back-to-back calls for
+   both where the profiler sees no device time for either), and its
+   bound (the bytes this input
+   needs ÷ 3.35 TB/s, or its integer operations ÷ 67 T/s if larger),
+   at each path's shapes (``bucket_scan`` runs on both paths: n = 1 M
+   and n = 9 M). ``launches`` in the kernels line sums both paths'
+   main runs; ``by_path`` gives each path's launches and numbers, and
+   the entry's ``ms``, ``plain_ms`` and ``bound_ms`` are their means
+   weighted by those launches.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -54,6 +83,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor-core rate (data sheet)
 INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
+# the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
+GRID_SIDE, OBSTACLES, GRID_DELTA, SMALL_SIDE = 3000, 0.1, 13, 512
+# sweeps of the warm-up solve whose inputs are kept (light and heavy)
+GRID_PICKS = frozenset({0, 1, 2, 3, 100, 101, 102, 1000, 1001, 1002,
+                        3000, 3001, 3002, 6000, 6001, 6002})
+# bucket_scan calls of the warm-up solve whose inputs are kept
+SCAN_PICKS = frozenset(range(0, 13000, 500)) | {1, 2, 3, 4, 5, 6}
 
 
 def check(cond, what: str) -> None:
@@ -138,7 +174,7 @@ def dedup_min(src, dst, w, n):
     return key[first], w[first].astype(np.int64)
 
 
-def oracle_dist(g):
+def oracle_dist(g, source: int = 0):
     """scipy Dijkstra on the deduplicated graph, INF32 for unreachable."""
     import numpy as np
     import scipy.sparse as sp
@@ -148,7 +184,7 @@ def oracle_dist(g):
                        g.w.cpu().numpy(), n)
     mat = sp.csr_matrix((w.astype(np.float64), (key // n, key % n)),
                         shape=(n, n))
-    d = dijkstra(mat, directed=True, indices=0)
+    d = dijkstra(mat, directed=True, indices=source)
     out = np.full(n, INF, np.int64)
     fin = np.isfinite(d)
     out[fin] = d[fin].astype(np.int64)
@@ -174,6 +210,259 @@ def check_tree(dist, pred, source, keyed):
           "pred sentinels")
 
 
+def check_path(path, source, target, distance, keyed, n):
+    """``path`` runs source -> target over edges of the graph whose
+    weights sum to ``distance``."""
+    import numpy as np
+    key, w = keyed
+    check(path is not None and path[0] == source and path[-1] == target,
+          "path endpoints")
+    p = np.asarray(path, np.int64)
+    k = p[:-1] * n + p[1:]
+    idx = np.minimum(np.searchsorted(key, k), key.shape[0] - 1)
+    check((key[idx] == k).all(), "path step is not an edge")
+    check(int(w[idx].sum()) == distance, "path weights do not sum to the "
+          "distance")
+
+
+def game_map_path(torch, np, cuda, counters):
+    """Phase 5: the game-map path at full width (``grid_map(3000, 3000,
+    0.1)``, Δ = 13, the first free cell as source) through
+    ``Engine(..., free_mask=free)`` on CUDA. Returns the path's launch
+    counts, its per-solve counts, and the recorded ``grid_relax`` and
+    ``bucket_scan`` inputs with the largest frontier, to time the
+    kernels on."""
+    import repro_torch.core.backends as backends
+    from repro_torch.api import (BoundedRadius, Engine, PointToPoint,
+                                 SingleSource)
+    from repro_torch.core import DeltaConfig, GridDeltaConfig, GridDeltaSolver
+    from repro_torch.graphs import grid_map
+    from repro_torch.kernels.bucket_scan import bucket_scan_cuda, \
+        bucket_scan_ref
+    from repro_torch.kernels.grid_relax import grid_relax_cuda, grid_relax_ref
+
+    t0 = time.perf_counter()
+    g, free = grid_map(GRID_SIDE, GRID_SIDE, OBSTACLES, seed=0)
+    n = g.n_nodes
+    src = int(np.flatnonzero(free.ravel())[0])
+    log(f"[grid] grid_map {GRID_SIDE}x{GRID_SIDE}, obstacles {OBSTACLES}: "
+        f"n={n} |E|={g.n_edges} free={int(free.sum())} source {src}, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref_dist, keyed = oracle_dist(g, src)
+    log(f"[grid] scipy dijkstra in {time.perf_counter() - t0:.1f} s; "
+        f"reachable {int((ref_dist < INF).sum())}, max dist "
+        f"{int(ref_dist[ref_dist < INF].max())}")
+    cfg = DeltaConfig(delta=GRID_DELTA, strategy="pallas", pred_mode="argmin")
+    plan = Engine(g, cfg, free_mask=free, device=cuda).plan()
+    check(isinstance(plan.backend, backends.GridPallasBackend),
+          "the grid plan does not route to the stencil")
+
+    # -- 5a. record mid-solve sweep and scan inputs (the warm-up solve) -----
+    rec, calls = [], [0]
+    scans, scan_calls, last = [], [0], ["start"]
+    real, real_scan = backends.grid_relax, backends.bucket_scan
+
+    def recorder(tent, free_, i, **kw):
+        if calls[0] in GRID_PICKS:
+            rec.append((tent.clone(), free_, i, kw))
+        calls[0] += 1
+        last[0] = "light" if kw["light"] else "heavy"
+        return real(tent, free_, i, **kw)
+
+    def scan_recorder(dist, explored, i, **kw):
+        out = real_scan(dist, explored, i, **kw)
+        if scan_calls[0] in SCAN_PICKS:
+            scans.append(((dist.clone(), explored.clone(), i), kw, last[0],
+                          int(out[0].sum())))
+        scan_calls[0] += 1
+        return out
+
+    backends.grid_relax, backends.bucket_scan = recorder, scan_recorder
+    try:
+        plan.solve(SingleSource(src))
+    finally:
+        backends.grid_relax, backends.bucket_scan = real, real_scan
+    torch.cuda.synchronize()
+    check({kw["light"] for _, _, _, kw in rec} == {True, False},
+          "no light and heavy sweep recorded")
+    check({after for _, _, after, _ in scans} == {"start", "light", "heavy"},
+          "no scan recorded after a light sweep, a heavy pass and the start")
+
+    # -- 5b. grid_relax against its twin on the card -----------------------
+    def frontier_size(t, i):
+        return int(((t < INF) & (t // GRID_DELTA == i)).sum())
+
+    for t, f, i, kw in rec:
+        same(torch, (grid_relax_cuda(t, f, i, **kw),),
+             (grid_relax_ref(t, f, i, **kw),))
+        torch.cuda.synchronize()
+    lights = [r for r in rec if r[3]["light"]]
+    main_case = max(lights, key=lambda r: frontier_size(r[0], r[2]))
+    log(f"[kernel] grid_relax: {len(rec)} mid-solve states of {calls[0]} "
+        f"sweeps equal to the twin (largest light frontier "
+        f"{frontier_size(main_case[0], main_case[2])} cells)")
+    rng = np.random.default_rng(1)
+    edge_cases = 0
+    for shape in ((1, 1), (1, 5000), (5000, 1), (37, 129), (1000, 1000)):
+        t = rng.integers(0, 60, size=shape).astype(np.int64)
+        t[rng.random(shape) < 0.3] = INF
+        near = rng.random(shape) < 0.15
+        t[near] = INF - rng.integers(1, 15, size=int(near.sum()))
+        t = torch.from_numpy(t.astype(np.int32)).to(cuda)
+        f = torch.from_numpy(rng.random(shape) >= 0.2).to(cuda)
+        for tt, ff in ((t, f), (t, torch.zeros_like(f)),
+                       (torch.full_like(t, INF), f)):
+            for delta in (5, 13, 20):
+                for light in (True, False):
+                    for i in (2, (INF - 8) // delta):
+                        kw = dict(delta=delta, cost_straight=10,
+                                  cost_diag=14, light=light)
+                        same(torch, (grid_relax_cuda(tt, ff, i, **kw),),
+                             (grid_relax_ref(tt, ff, i, **kw),))
+                        edge_cases += 1
+    torch.cuda.synchronize()
+    log(f"[kernel] grid_relax: {edge_cases} edge cases equal to the twin: "
+        "1x1, 1xW, Hx1, 37x129 and 1000x1000 grids; as drawn, all-blocked "
+        "and all-INF; values within 14 of INF in the swept bucket; "
+        "Δ = 5 / 13 / 20, both phases")
+
+    # -- 5b'. bucket_scan against its twin at n = 9 M -----------------------
+    for (t, e, i), kw, _, _ in scans:
+        same(torch, bucket_scan_cuda(t, e, i, delta=kw["delta"]),
+             bucket_scan_ref(t, e, i, delta=kw["delta"]))
+        torch.cuda.synchronize()
+    scan_case = max(scans, key=lambda r: r[3])
+    log(f"[kernel] bucket_scan at n={n}: {len(scans)} mid-solve states of "
+        f"{scan_calls[0]} scans equal to the twin ("
+        + ", ".join(f"{sum(r[2] == k for r in scans)} after {k}"
+                    for k in ("start", "light", "heavy"))
+        + f"; largest frontier {scan_case[3]} cells)")
+
+    # -- 5c. the game-map main path -----------------------------------------
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r = plan.solve(SingleSource(src))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    tel = r.telemetry
+    log(f"[grid] launches over the game-map main path: "
+        f"{json.dumps(launches)}")
+    check(launches["grid_relax"] == tel.buckets + tel.inner_iters,
+          "grid_relax launches != buckets + inner_iters")
+    check(launches["bucket_scan"] == 2 * tel.buckets + tel.inner_iters,
+          "bucket_scan launches != 2 * buckets + inner_iters")
+    dist = r.dist.cpu().numpy()
+    pred = r.pred.cpu().numpy()
+    check(dist.dtype == np.int32 and pred.dtype == np.int32, "dtypes")
+    check(np.array_equal(dist.astype(np.int64), ref_dist),
+          "gamemap: dist differs from the scipy oracle")
+    check_tree(dist, pred, src, keyed)
+    log(f"[grid] SingleSource: dist == oracle, pred tree ok, "
+        f"buckets={tel.buckets} inner_iters={tel.inner_iters} "
+        f"overflow={tel.overflow} host_syncs={plan.host_syncs} first solve "
+        f"{wall * 1e3:.1f} ms")
+    per_solve = {("gamemap", "argmin"): launches}
+
+    # -- 5d. the standalone grid driver, default config ---------------------
+    solver = GridDeltaSolver(free, GridDeltaConfig(), device=cuda)
+    before = grid_relax_cuda.launches
+    t0 = time.perf_counter()
+    gr = solver.solve((src // GRID_SIDE, src % GRID_SIDE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    solver_launches = grid_relax_cuda.launches - before
+    check(np.array_equal(gr.dist.cpu().numpy().ravel(), dist),
+          "GridDeltaSolver dist differs")
+    check(solver_launches == gr.outer_iters + gr.inner_iters,
+          "GridDeltaSolver did not sweep through the kernel")
+    log(f"[grid] GridDeltaSolver (backend {solver.cfg.backend!r}): dist "
+        f"equal, outer_iters={gr.outer_iters} inner_iters={gr.inner_iters} "
+        f"grid_relax launches {solver_launches}, {wall * 1e3:.1f} ms")
+
+    # -- 5e. point-to-point and bounded-radius queries ----------------------
+    reach = np.flatnonzero((dist < INF) & (dist <= 100))
+    near_t = int(reach[np.argmax(dist[reach])])
+    far_t = int(np.flatnonzero(free.ravel())[-1])
+    queries = {"p2p_far": PointToPoint(src, far_t),
+               "p2p_near": PointToPoint(src, near_t),
+               "bounded_1000": BoundedRadius(src, 1000)}
+    answers = {}
+    for name, q in queries.items():
+        before = {k: fn.launches for k, fn in counters.items()}
+        a = plan.solve(q)
+        torch.cuda.synchronize()
+        answers[name] = a
+        per_solve[("gamemap", name)] = {
+            k: fn.launches - before[k] for k, fn in counters.items()}
+        check(a.telemetry.buckets <= tel.buckets, f"{name}: more buckets")
+    for name in ("p2p_far", "p2p_near"):
+        a, tgt = answers[name], queries[name].target
+        check(a.distance == int(dist[tgt]), f"{name}: distance differs")
+        check_path(a.path, src, tgt, a.distance, keyed, n)
+        log(f"[grid] {name} {src}->{tgt}: distance {a.distance} == "
+            f"SingleSource, path of {len(a.path) - 1} valid steps, "
+            f"buckets={a.telemetry.buckets} "
+            f"inner_iters={a.telemetry.inner_iters}")
+    check(answers["p2p_near"].telemetry.buckets
+          < answers["p2p_far"].telemetry.buckets,
+          "the near target took no fewer buckets")
+    b = answers["bounded_1000"]
+    within = dist <= 1000
+    check(np.array_equal(b.dist.cpu().numpy(), np.where(within, dist, INF)),
+          "bounded dist differs from the filtered SingleSource dist")
+    check(np.array_equal(b.pred.cpu().numpy(), np.where(within, pred, -1)),
+          "bounded pred differs from the filtered SingleSource pred")
+    log(f"[grid] bounded_1000: dist/pred == SingleSource filtered at 1000 "
+        f"({int(within.sum())} cells), buckets={b.telemetry.buckets} "
+        f"inner_iters={b.telemetry.inner_iters}")
+
+    # -- 5f. the grid plan bitwise equal to edge on a smaller map -----------
+    gs, fs = grid_map(SMALL_SIDE, SMALL_SIDE, OBSTACLES, seed=0)
+    s_src = int(np.flatnonzero(fs.ravel())[0])
+    out = {}
+    for strategy, mask in (("pallas", fs), ("edge", None)):
+        p = Engine(gs, DeltaConfig(delta=GRID_DELTA, strategy=strategy,
+                                   pred_mode="argmin"), free_mask=mask,
+                   device=cuda).plan()
+        x = p.solve(SingleSource(s_src))
+        out[strategy] = (x.dist.cpu().numpy(), x.pred.cpu().numpy(),
+                         x.telemetry.buckets, x.telemetry.inner_iters)
+    for k, name in enumerate(("dist", "pred", "buckets", "inner_iters")):
+        check(np.array_equal(out["pallas"][k], out["edge"][k]),
+              f"{SMALL_SIDE}x{SMALL_SIDE}: grid plan {name} differs from edge")
+    log(f"[grid] {SMALL_SIDE}x{SMALL_SIDE}: grid plan bitwise equal to edge "
+        f"(dist, pred, buckets={out['edge'][2]}, "
+        f"inner_iters={out['edge'][3]})")
+
+    # -- 5g. times -----------------------------------------------------------
+    for name, q in [("SingleSource", SingleSource(src))] + list(
+            queries.items()):
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            a = plan.solve(q)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        log(f"[time] gamemap/{name}: median "
+            f"{statistics.median(walls) * 1e3:.1f} ms over 3 after warm-up "
+            f"({', '.join(f'{x * 1e3:.1f}' for x in walls)}), host_syncs="
+            f"{plan.host_syncs}, buckets={a.telemetry.buckets}, "
+            f"inner_iters={a.telemetry.inner_iters}")
+
+    # -- 5h. where a grid solve's device time goes --------------------------
+    kern, wall = profiled(torch, lambda: plan.solve(SingleSource(src)))
+    busy = sum(kern.values())
+    log(f"[profile] gamemap/argmin: profiled solve {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{len(kern)} kernel names")
+    for kname, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {ms:9.3f} ms  {kname[:110]}")
+    return launches, per_solve, main_case, scan_case
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -194,6 +483,7 @@ def main() -> int:
     from repro_torch.kernels.frontier_relax import (frontier_relax,
                                                     frontier_relax_cuda,
                                                     frontier_relax_ref)
+    from repro_torch.kernels.grid_relax import grid_relax_cuda, grid_relax_ref
 
     cuda = torch.device("cuda", 0)
     torch.cuda.set_device(cuda)
@@ -341,7 +631,8 @@ def main() -> int:
 
     # -- 3. main path -------------------------------------------------------
     counters = {"bucket_scan": bucket_scan_cuda, "ell_relax": ell_relax_cuda,
-                "frontier_relax": frontier_relax_cuda}
+                "frontier_relax": frontier_relax_cuda,
+                "grid_relax": grid_relax_cuda}
     for fn in counters.values():
         fn.launches = 0
     results, per_solve = {}, {}
@@ -354,8 +645,8 @@ def main() -> int:
         per_solve[key] = {k: fn.launches - before[k]
                           for k, fn in counters.items()}
         results[key] = (r, plan.host_syncs, wall)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"[main] launches over the main path: {json.dumps(launches)}")
+    launches_sw = {k: fn.launches for k, fn in counters.items()}
+    log(f"[main] launches over the main path: {json.dumps(launches_sw)}")
     check(per_solve[("fused", "argmin")]["frontier_relax"] > 0,
           "fused solve did not launch frontier_relax")
     check(per_solve[("fused", "argmin")]["bucket_scan"] > 0,
@@ -364,7 +655,9 @@ def main() -> int:
           "pallas solve did not launch bucket_scan")
     check(per_solve[("pallas", "argmin")]["ell_relax"] > 0,
           "pallas solve did not launch ell_relax")
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    check(all(launches_sw[k] > 0 for k in
+              ("bucket_scan", "ell_relax", "frontier_relax")),
+          "a kernel of the small-world path never launched")
 
     base = results[("edge", "argmin")][0]
     base_pred = base.pred.cpu().numpy()
@@ -416,7 +709,16 @@ def main() -> int:
         f"host_syncs={rplan.host_syncs} median solve "
         f"{statistics.median(rwalls) * 1e3:.1f} ms over 3")
 
-    # -- 5. times -----------------------------------------------------------
+    # -- 5. the game-map path ----------------------------------------------
+    launches_gm, per_grid, grid_case, grid_scan_case = game_map_path(
+        torch, np, cuda, counters)
+    check(launches_gm["grid_relax"] > 0 and launches_gm["bucket_scan"] > 0,
+          "the game-map path did not launch grid_relax and bucket_scan")
+    per_solve.update(per_grid)
+    launches = {k: launches_sw[k] + launches_gm[k] for k in counters}
+    by_path = {"smallworld": launches_sw, "gamemap": launches_gm}
+
+    # -- 6. times -----------------------------------------------------------
     for key, plan in plans.items():
         walls = []
         for _ in range(3):
@@ -431,7 +733,7 @@ def main() -> int:
             f"{syncs}, buckets={r.telemetry.buckets}, "
             f"inner_iters={r.telemetry.inner_iters}")
 
-    # -- 6. where a solve's device time goes (one profiled solve each) ------
+    # -- 7. where a solve's device time goes (one profiled solve each) ------
     for key in (("fused", "argmin"), ("pallas", "argmin"), ("ell", "argmin"),
                 ("edge", "argmin")):
         kern, wall = profiled(torch, lambda: plans[key].solve(
@@ -446,65 +748,105 @@ def main() -> int:
 
     kernels = []
 
-    def entry(name, source, replaces, kernel_fn, twin_fn, nbytes, ops, err,
-              iters):
-        wrapper_ms = timed_ms(torch, kernel_fn, iters)
-        kern, _ = profiled(torch, kernel_fn, iters)
-        twin, _ = profiled(torch, twin_fn, max(1, iters // 4))
-        dev_ms, plain_ms = sum(kern.values()), sum(twin.values())
-        if dev_ms > 0:
-            ms, how = dev_ms, "profiler device time per wrapper call"
-        else:
-            ms, how = wrapper_ms, "CUDA events over back-to-back calls"
-            plain_ms = timed_ms(torch, twin_fn, max(1, iters // 4))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / ALU_OPS_PER_S * 1e3
+    def entry(name, source, replaces, cases):
+        """One kernels-line entry. ``cases`` maps each path that launches
+        the kernel to ``(kernel_fn, twin_fn, nbytes, ops, err, iters)`` at
+        that path's main-run shapes."""
+        paths = {}
+        for path, (kernel_fn, twin_fn, nbytes, ops, err, iters) in \
+                cases.items():
+            wrapper_ms = timed_ms(torch, kernel_fn, iters)
+            kern, _ = profiled(torch, kernel_fn, iters)
+            twin, _ = profiled(torch, twin_fn, max(1, iters // 4))
+            dev_ms, plain_ms = sum(kern.values()), sum(twin.values())
+            if dev_ms > 0 and plain_ms > 0:
+                ms, how = dev_ms, "profiler device time per wrapper call"
+            else:   # the profiler saw no device time for one of the two
+                ms, how = wrapper_ms, "CUDA events over back-to-back calls"
+                plain_ms = timed_ms(torch, twin_fn, max(1, iters // 4))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / ALU_OPS_PER_S * 1e3
+            paths[path] = {
+                "launches": by_path[path][name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": err, "ms_how": how, "wrapper_ms": wrapper_ms,
+                "bytes": nbytes, "ops": ops}
+            log(f"[time] kernel {name} ({path}): {ms:.4f} ms/launch ({how}; "
+                f"events {wrapper_ms:.4f} ms), twin {plain_ms:.4f} ms, bound "
+                f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, {ops} ops), "
+                f"launches {by_path[path][name]}")
+            for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
+                log(f"[time]   {kms:.4f} ms  {kname[:100]}")
+        total = sum(p["launches"] for p in paths.values())
+        check(total == launches[name], f"{name}: a launching path is not "
+              "timed")
+
+        def mean(key):
+            return sum(p["launches"] * p[key] for p in paths.values()) / total
+
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "ms_how": how, "wrapper_ms": wrapper_ms})
-        log(f"[time] kernel {name}: {ms:.4f} ms/launch ({how}; events "
-            f"{wrapper_ms:.4f} ms), twin {plain_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, {ops} ops), "
-            f"launches/solve "
+            "max_abs_err": max(p["max_abs_err"] for p in paths.values()),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": ("bytes" if all(p["bound_by"] == "bytes"
+                                        for p in paths.values())
+                         else "operations"),
+            "library_ms": None, "by_path": paths})
+        log(f"[time] kernel {name}: launch-weighted {mean('ms'):.4f} "
+            f"ms/launch, bound {mean('bound_ms'):.4f} ms; launches/solve "
             f"{ {k[0] + '/' + k[1]: v[name] for k, v in per_solve.items()} }")
-        for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
-            log(f"[time]   {kms:.4f} ms  {kname[:100]}")
+
+    def scan_case(t_, e_, i_, delta):
+        n = t_.shape[0]
+        return (lambda: bucket_scan_cuda(t_, e_, i_, delta=delta),
+                lambda: bucket_scan_ref(t_, e_, i_, delta=delta),
+                9 * n + 8, 8 * n,
+                same(torch, bucket_scan_cuda(t_, e_, i_, delta=delta),
+                     bucket_scan_ref(t_, e_, i_, delta=delta)), 40)
 
     (t_, e_, i_), kw, pop = main_case["bucket_scan"]
-    n = t_.shape[0]
+    (gt_, ge_, gi_), gkw, _, _ = grid_scan_case
     entry("bucket_scan", "src/repro_torch/csrc/bucket_scan.cu",
           "src/repro/kernels/bucket_scan/bucket_scan.py:36",
-          lambda: bucket_scan_cuda(t_, e_, i_, delta=DELTA),
-          lambda: bucket_scan_ref(t_, e_, i_, delta=DELTA),
-          9 * n + 8, 8 * n,
-          same(torch, bucket_scan_cuda(t_, e_, i_, delta=DELTA),
-               bucket_scan_ref(t_, e_, i_, delta=DELTA)), 40)
+          {"smallworld": scan_case(t_, e_, i_, DELTA),
+           "gamemap": scan_case(gt_, ge_, gi_, gkw["delta"])})
     (fidx, dist, w_ell), kw, m = main_case["ell_relax"]
     cap, dd = fidx.shape[0], w_ell.shape[1]
     entry("ell_relax", "src/repro_torch/csrc/ell_relax.cu",
-          "src/repro/kernels/ell_relax/ell_relax.py:29",
-          lambda: ell_relax_cuda(fidx, dist, w_ell),
-          lambda: ell_relax_ref(fidx, dist, w_ell),
-          4 * cap + 4 * m + 4 * dd * (m + int(m < cap)) + 4 * cap * dd,
-          4 * cap * dd,
-          same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
-               (ell_relax_ref(fidx, dist, w_ell),)), 20)
+          "src/repro/kernels/ell_relax/ell_relax.py:29", {"smallworld": (
+              lambda: ell_relax_cuda(fidx, dist, w_ell),
+              lambda: ell_relax_ref(fidx, dist, w_ell),
+              4 * cap + 4 * m + 4 * dd * (m + int(m < cap)) + 4 * cap * dd,
+              4 * cap * dd,
+              same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
+                   (ell_relax_ref(fidx, dist, w_ell),)), 20)})
     (d, e, i, nbr, w), kw, pop = main_case["frontier_relax"]
     cap, dd = kw["cap"], w.shape[1]
     filled = min(pop, cap)
     entry("frontier_relax", "src/repro_torch/csrc/frontier_relax.cu",
           "src/repro/kernels/frontier_relax/frontier_relax.py:57",
-          lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
-          lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_ref),
-          8 * d.shape[0] + 4 * cap + 8 * cap * dd
-          + 8 * dd * (filled + int(filled < cap)) + 12,
-          8 * d.shape[0] + 2 * cap * dd,
-          same(torch, run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
-               run_fr((d, e, i, nbr, w), kw, frontier_relax_ref)), 20)
+          {"smallworld": (
+              lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
+              lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_ref),
+              8 * d.shape[0] + 4 * cap + 8 * cap * dd
+              + 8 * dd * (filled + int(filled < cap)) + 12,
+              8 * d.shape[0] + 2 * cap * dd,
+              same(torch, run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
+                   run_fr((d, e, i, nbr, w), kw, frontier_relax_ref)),
+              20)})
+    t_, f_, i_, kw = grid_case
+    hw = t_.numel()
+    moves = 4   # one move class per phase at Δ = 13: 4 straight or 4 diagonal
+    entry("grid_relax", "src/repro_torch/csrc/grid_relax.cu",
+          "src/repro/kernels/grid_relax/grid_relax.py:45", {"gamemap": (
+              lambda: grid_relax_cuda(t_, f_, i_, **kw),
+              lambda: grid_relax_ref(t_, f_, i_, **kw),
+              9 * hw, hw * (3 + 3 * moves + 2),
+              same(torch, (grid_relax_cuda(t_, f_, i_, **kw),),
+                   (grid_relax_ref(t_, f_, i_, **kw),)), 40)})
     torch.cuda.synchronize()
 
     log(smi)

@@ -1,9 +1,11 @@
 """Core of the PyTorch port: the Δ-stepping engine, its backends, the
-value-word packing and the host oracles."""
+standalone game-map grid solver, the value-word packing and the host
+oracles."""
 from repro_torch.core.backends import (
     EdgeBackend,
     EllBackend,
     FusedBackend,
+    GridPallasBackend,
     PallasEllBackend,
     RelaxBackend,
     edge_sweep,
@@ -16,6 +18,11 @@ from repro_torch.core.delta_stepping import (
     DeltaConfig,
     SSSPResult,
     pred_argmin,
+)
+from repro_torch.core.grid import (
+    GridDeltaConfig,
+    GridDeltaSolver,
+    GridSSSPResult,
 )
 from repro_torch.core.ref import (
     bellman_ford,
@@ -35,7 +42,11 @@ __all__ = [
     "EdgeBackend",
     "EllBackend",
     "FusedBackend",
+    "GridPallasBackend",
     "PallasEllBackend",
+    "GridDeltaConfig",
+    "GridDeltaSolver",
+    "GridSSSPResult",
     "make_backend",
     "scan_bucket",
     "dijkstra",

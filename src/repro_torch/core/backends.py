@@ -14,9 +14,13 @@ Every strategy of the reference's main path, over the same primitives:
   ``kernels/frontier_relax`` step per inner iteration (scan +
   compaction + row gather), then the shared candidate path and a
   scatter-min.
+* ``pallas`` with a ``free_mask`` (game maps) — the masked 8-neighbour
+  stencil of the hand-written ``kernels/grid_relax`` kernel over the
+  occupancy grid, with every bucket scan on ``kernels/bucket_scan``.
 
 A backend provides ``sweep(tent, mask, bucket_i, light=, packed=) →
-(tent', overflow)`` and ``scan(dist, explored, bucket_i) → (frontier,
+(tent', overflow)`` (``overflow`` a device bool, or ``None`` for a
+backend with no frontier buffer to overflow) and ``scan(dist, explored, bucket_i) → (frontier,
 any, next_bucket)``, plus host-side preprocessing in ``build``. Its
 tensors live on one device; on CUDA the kernels run, on the CPU their
 plain twins (the ops dispatchers decide by the tensor's device).
@@ -32,10 +36,12 @@ scatter-min is ``scatter_reduce_(…, "amin")``: order-free, so bitwise.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import pack as packing
+from repro_torch.core.grid import free_mask_tensor
 from repro_torch.graphs.structures import (
     COOGraph,
     ELLGraph,
@@ -47,6 +53,7 @@ from repro_torch.graphs.structures import (
 from repro_torch.kernels.bucket_scan import bucket_scan
 from repro_torch.kernels.ell_relax import ell_relax
 from repro_torch.kernels.frontier_relax import compact_ref, frontier_relax
+from repro_torch.kernels.grid_relax import grid_relax
 
 _INF = int(INF32)
 _IMAX = 2**31 - 1
@@ -403,13 +410,45 @@ class FusedBackend(_FrontierCompactMixin, RelaxBackend):
         return tent, over
 
 
+@dataclasses.dataclass(frozen=True)
+class GridPallasBackend(_PallasScanMixin, RelaxBackend):
+    """Game-map strategy (paper §4 'Game Maps'): the graph is an
+    occupancy grid, so relaxation is the ``kernels/grid_relax`` masked
+    min-plus stencil, with no adjacency at all. The stencil recomputes
+    bucket membership from ``tent`` in-kernel, so the driver's mask
+    argument is advisory; re-relaxing settled cells is idempotent (the
+    paper's redundant-work trade). int32 distances only
+    (``pred_mode='packed'`` is refused by ``make_backend``)."""
+
+    free: torch.Tensor                    # bool[H, W] occupancy mask
+    delta: int
+    shape: Tuple[int, int]
+    costs: Tuple[int, int]                # (straight, diagonal)
+
+    @classmethod
+    def build(cls, graph: COOGraph, cfg, free_mask) -> "GridPallasBackend":
+        free = free_mask_tensor(free_mask, graph.device)
+        if free.dim() != 2 or free.numel() != graph.n_nodes:
+            raise ValueError(
+                f"free_mask shape {tuple(free.shape)} does not cover the "
+                f"{graph.n_nodes}-vertex graph")
+        return cls(free, cfg.delta, tuple(free.shape), tuple(cfg.grid_costs))
+
+    def sweep(self, tent, mask, bucket_i, *, light: bool, packed: bool):
+        out = grid_relax(tent.reshape(self.shape), self.free, bucket_i,
+                         delta=self.delta, cost_straight=self.costs[0],
+                         cost_diag=self.costs[1], light=light)
+        return out.reshape(-1), None      # no frontier buffer to overflow
+
+
 _SHARDED = ("sharded_edge", "sharded_ell", "sharded_fused")
 
 
 def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
-    """Route a (graph, config) pair to its backend. The game-map stencil
-    (``pallas`` + ``free_mask``) and the sharded strategies are not
-    ported yet and raise."""
+    """Route a (graph, config) pair to its backend. ``free_mask`` marks
+    the game-map graph class: under ``strategy='pallas'`` it selects the
+    grid-stencil kernel instead of the ELL kernels (other strategies
+    ignore it). The sharded strategies are not ported yet and raise."""
     if cfg.strategy in _SHARDED:
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not ported to repro_torch yet "
@@ -423,9 +462,11 @@ def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
     if cfg.strategy != "pallas":
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if free_mask is not None:
-        raise NotImplementedError(
-            "the game-map grid_relax path (pallas + free_mask) is not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 7)")
+        if cfg.pred_mode == "packed":
+            raise ValueError(
+                "grid-stencil pallas backend carries int32 distances only; "
+                "use pred_mode='argmin' (post-hoc tree recovery)")
+        return GridPallasBackend.build(graph, cfg, free_mask)
     return PallasEllBackend.build(graph, cfg)
 
 
@@ -433,6 +474,7 @@ __all__ = [
     "EdgeBackend",
     "EllBackend",
     "FusedBackend",
+    "GridPallasBackend",
     "PallasEllBackend",
     "RelaxBackend",
     "candidate_words",

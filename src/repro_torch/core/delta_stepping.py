@@ -103,19 +103,84 @@ def _run_one(backend: RelaxBackend, source: int, *, n: int, packed: bool,
     return _run_backend(backend, source, n=n, packed=packed, device=device)
 
 
+def _run_one_p2p(backend: RelaxBackend, source: int, target: int, *, n: int,
+                 packed: bool, device) -> RunOut:
+    """Point-to-point solve with early exit (Kainer & Träff 2019,
+    DESIGN.md §10): when the outer loop advances past bucket i, every
+    vertex whose tentative distance lies in a bucket <= i is settled,
+    and the next-bucket scan is a global min over the unsettled tent
+    values, so ``tent[target] // Δ < next_bucket`` proves the target's
+    distance final. The landmark paths' mid-bucket exit
+    (``all_light``/``inner_stop``) is not ported (ROADMAP Queue 1 item
+    10)."""
+    delta = backend.delta
+
+    def stop(tent, explored, nxt):
+        d_t = dist_of(tent, packed)[target]
+        return (d_t < _INF) & ((d_t // delta) < nxt)
+
+    return _run_backend(backend, source, n=n, packed=packed, device=device,
+                        stop=stop)
+
+
+def _run_one_bounded(backend: RelaxBackend, source: int, radius: int, *,
+                     n: int, packed: bool, device) -> RunOut:
+    """Bounded-radius solve: stop at the first bucket past
+    ``radius // Δ``. Every vertex with true distance <= radius lives in
+    a bucket <= radius // Δ and is settled by then; tent values beyond
+    are upper bounds, not answers (the caller filters them)."""
+    last = radius // backend.delta
+
+    def stop(tent, explored, nxt):
+        return nxt > last
+
+    return _run_backend(backend, source, n=n, packed=packed, device=device,
+                        stop=stop)
+
+
+def _read(flag, extra):
+    """One device→host transfer: ``flag`` as an int, and the device
+    bool ``extra`` (a stop predicate) with it when there is one."""
+    if extra is None:
+        return int(flag), False
+    flag, extra = torch.stack([flag.to(torch.int64),
+                               extra.to(torch.int64)]).tolist()
+    return flag, bool(extra)
+
+
+def _or(over, o):
+    """Accumulate a sweep's overflow flag; ``None`` (a backend with no
+    frontier buffer) adds no device op."""
+    return over if o is None else over | o
+
+
 def _run_backend(backend: RelaxBackend, source: int, *, n: int, packed: bool,
-                 device) -> RunOut:
+                 device, stop=None) -> RunOut:
     """Outer/inner Δ-stepping loop (paper Alg. 1) over one backend, cold
     start. Same op sequence on the same states as the reference's
-    ``_run_backend`` with no ``stop``/``init``/``inner_stop`` hook, so
-    tent words and counters are bitwise the reference's."""
-    tent = init_tent(n, source, packed, device)
+    ``_run_backend`` with no ``init``/``inner_stop`` hook, so tent words
+    and counters are bitwise the reference's.
+
+    ``stop`` is the optional early-exit predicate ``(tent, explored,
+    next_bucket) -> device bool`` checked between buckets, as the
+    reference's ``outer_cond`` checks it: before bucket 0 (with
+    ``next_bucket = 0``) and after every bucket. Each check is read in
+    the same transfer as the flag the loop reads there anyway (the
+    priming scan's, or the fused loop's first step's, before bucket 0;
+    the next bucket after each bucket), so it adds no host
+    synchronisation. ``None`` keeps the full-solve loop unchanged."""
+    tent0 = tent = init_tent(n, source, packed, device)
     explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
     over = torch.zeros((), dtype=torch.bool, device=device)
     fused = getattr(backend, "supports_fused_light", False)
     i, outer, inner, syncs = 0, 0, 0, 0
+    # outer_cond's check before bucket 0 (i < IMAX holds for i = 0); a
+    # stop there returns the cold state with zero counters
+    first = (None if stop is None else
+             stop(tent, explored, torch.zeros((), dtype=torch.int32,
+                                              device=device)))
 
-    while True:                  # outer_cond (i < IMAX) holds for i = 0
+    while True:
         in_s = torch.zeros((n,), dtype=torch.bool, device=device)
         if fused:
             # fused light phase (DESIGN.md §12): scan-then-relax is one
@@ -126,34 +191,41 @@ def _run_backend(backend: RelaxBackend, source: int, *, n: int, packed: bool,
             while go:
                 tent, explored, in_s, any_, o = backend.fused_iter(
                     tent, explored, in_s, i, packed=packed)
-                over = over | o
-                go = bool(any_)
+                go, halt = _read(any_, first)
                 syncs += 1
-                inner += int(go)
+                if halt:
+                    return RunOut(tent0, 0, 0, False, syncs + 1)
+                first = None
+                over = over | o
+                inner += go
         else:
             f, go, _ = backend.scan(dist_of(tent, packed), explored, i)
-            go = bool(go)
+            go, halt = _read(go, first)
             syncs += 1
+            if halt:
+                return RunOut(tent0, 0, 0, False, syncs + 1)
+            first = None
             while go:
                 explored = torch.where(f, dist_of(tent, packed), explored)
                 in_s = in_s | f                      # paper: move into S
                 tent, o = backend.sweep(tent, f, i, light=True, packed=packed)
-                over = over | o
+                over = _or(over, o)
                 f, go, _ = backend.scan(dist_of(tent, packed), explored, i)
                 go = bool(go)
                 syncs += 1
                 inner += 1
         # heavy pass from S (paper Alg. 1 lines 19-20)
         tent, o = backend.sweep(tent, in_s, i, light=False, packed=packed)
-        over = over | o
+        over = _or(over, o)
         if fused:
             nxt = backend.fused_next(dist_of(tent, packed), explored, i)
         else:
             _, _, nxt = backend.scan(dist_of(tent, packed), explored, i)
         outer += 1
-        i = int(nxt)
+        i, halt = _read(nxt, None if stop is None else
+                        stop(tent, explored, nxt))
         syncs += 1
-        if i >= _IMAX:
+        if i >= _IMAX or halt:
             break
     return RunOut(tent, outer, inner, bool(over), syncs + 1)
 

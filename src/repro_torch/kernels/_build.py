@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("bucket_scan.cu", "ell_relax.cu", "frontier_relax.cu")
+SOURCES = ("bucket_scan.cu", "ell_relax.cu", "frontier_relax.cu",
+           "grid_relax.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,7 @@ SIGNATURES = {
     "ell_relax_launch": (_P, _P, _P, _I, _LL, _I, _P, _P),
     "frontier_relax_launch": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                               _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "grid_relax_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -3,9 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.sssp --graph smallworld \\
       --nodes 100000 --degree 20 --delta 10 --strategy fused --verify
 
+  PYTHONPATH=src python -m repro_torch.launch.sssp --graph gamemap \\
+      --nodes 250000 --strategy pallas --target 249999 --verify
+
 Flag names follow ``repro.launch.sssp``. The solve runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 first solve builds the CUDA kernels and warms up; the second is timed.
+``--graph gamemap`` is a ``sqrt(nodes)``-square occupancy grid with
+obstacle fraction 0.1 at Δ = 13; ``--strategy pallas`` solves it with
+the grid stencil. ``--target T`` answers one early-exit
+``PointToPoint`` query from source 0 instead of the full solve.
 ``--verify`` checks the distances against the heap-Dijkstra oracle and
 exits non-zero on a mismatch.
 """
@@ -18,7 +25,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="smallworld",
-                    choices=["smallworld", "rmat"])
+                    choices=["smallworld", "rmat", "gamemap"])
     ap.add_argument("--nodes", type=int, default=100_000)
     ap.add_argument("--degree", type=int, default=20)
     ap.add_argument("--p", type=float, default=1e-2)
@@ -30,30 +37,57 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain twins)")
+    ap.add_argument("--target", type=int, default=None,
+                    help="point-to-point query: early-exit solve from "
+                         "source 0 to this vertex")
     ap.add_argument("--verify", action="store_true")
     args = ap.parse_args(argv)
 
     import numpy as np
     import torch
 
-    from repro_torch.api import Engine, SingleSource
+    from repro_torch.api import Engine, PointToPoint, SingleSource
     from repro_torch.core import DeltaConfig, dijkstra
-    from repro_torch.graphs import rmat, watts_strogatz
+    from repro_torch.graphs import grid_map, rmat, watts_strogatz
 
     t0 = time.perf_counter()
+    free = None
     if args.graph == "smallworld":
         g = watts_strogatz(args.nodes, args.degree - args.degree % 2, args.p,
                            seed=0)
-    else:
+    elif args.graph == "rmat":
         g = rmat(args.nodes, args.nodes * args.degree, seed=0)
+    else:
+        side = int(np.sqrt(args.nodes))
+        g, free = grid_map(side, side, 0.1, seed=0)
+        args.delta = 13
     print(f"[sssp] graph {args.graph}: |V|={g.n_nodes} |E|={g.n_edges} "
           f"({time.perf_counter() - t0:.1f}s to generate)")
 
     cfg = DeltaConfig(delta=args.delta, strategy=args.strategy,
                       pred_mode=args.pred_mode)
-    engine = Engine(g, cfg, device=args.device)
+    engine = Engine(g, cfg, free_mask=free, device=args.device)
     plan = engine.plan()
     dev = engine.device
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    if args.target is not None:
+        q = PointToPoint(0, args.target)
+        plan.solve(q)                           # kernel build + warm-up
+        t0 = time.perf_counter()
+        r = plan.solve(q)
+        dt = time.perf_counter() - t0
+        hops = 0 if r.path is None else len(r.path) - 1
+        print(f"[sssp] p2p 0->{args.target} on {name}: dist={r.distance} "
+              f"hops={hops} buckets={r.telemetry.buckets} (early_exit), "
+              f"{dt * 1e3:.1f} ms, host syncs={plan.host_syncs}")
+        if args.verify:
+            ref, _ = dijkstra(g, 0)
+            ok = int(ref[args.target]) == r.distance
+            print(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(1)
+        return
     plan.solve(SingleSource(0))                 # kernel build + warm-up
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -61,8 +95,6 @@ def main(argv=None):
     r = plan.solve(SingleSource(0))
     dist = r.dist.cpu().numpy()
     dt = time.perf_counter() - t0
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
     print(f"[sssp] Δ={cfg.delta} ({cfg.strategy}, {cfg.pred_mode}) on "
           f"{name}: {dt * 1e3:.1f} ms/source, "
           f"buckets={r.telemetry.buckets}, "

@@ -5,7 +5,10 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item; the launcher runs end to end on the CPU with --verify.
+  ROADMAP item (the game-map path and the point-to-point and
+  bounded-radius queries are ported; the batched queries, the landmark
+  modes and dynamic updates are not); the launcher runs end to end on
+  the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.api import (
     Engine,
+    ManyToMany,
     MultiSource,
     PointToPoint,
     SingleSource,
@@ -43,6 +47,8 @@ def test_port_has_modules_to_scan():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/core/backends.py",
                  "src/repro_torch/kernels/frontier_relax/ops.py",
+                 "src/repro_torch/kernels/grid_relax/ops.py",
+                 "src/repro_torch/core/grid.py",
                  "src/repro_torch/api/engine.py", "chip_smoke.py"):
         assert must in names
 
@@ -75,14 +81,14 @@ def test_unported_parts_raise_with_roadmap_item():
         Engine(g, cfg, tuning="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(g, DeltaConfig(strategy="sharded_edge"), device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         Engine(g, DeltaConfig(strategy="pallas"), free_mask=np.ones((4, 5)),
-               device="cpu")
+               device="cpu").plan().solve(ManyToMany([0], [3]))
     with pytest.raises(NotImplementedError, match="item 8"):
         Engine(g, DeltaConfig(policy="rho"), device="cpu")
     plan = Engine(g, cfg, device="cpu").plan()
     for q, item in ((MultiSource([0, 1]), "item 4"),
-                    (PointToPoint(0, 3), "item 4"),
+                    (PointToPoint(0, 3, mode="alt"), "item 10"),
                     (UpdateBatch([0], [3]), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             plan.solve(q)

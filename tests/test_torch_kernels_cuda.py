@@ -17,6 +17,7 @@ from repro_torch.kernels.frontier_relax import (
     frontier_relax_cuda,
     frontier_relax_ref,
 )
+from repro_torch.kernels.grid_relax import grid_relax_cuda, grid_relax_ref
 
 INF = 2**31 - 1
 SEEDS = (0, 1, 2)
@@ -99,6 +100,59 @@ def test_frontier_relax_kernel_matches_twin(cuda, s, deg, cap_frac, width):
            frontier_relax_ref(allinf, allinf, 0, nbr, w, delta=7, cap=cap))
 
 
+def _grid_case(rng, shape):
+    """tent int32[H, W] with INF cells and values within 14 of INF, and
+    a free mask with blocked cells."""
+    t = rng.integers(0, 60, size=shape).astype(np.int64)
+    t[rng.random(shape) < 0.3] = INF
+    near = rng.random(shape) < 0.15
+    t[near] = INF - rng.integers(1, 15, size=int(near.sum()))
+    return t.astype(np.int32), rng.random(shape) >= 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (1, 700), (700, 1), (32, 32),
+                                   (37, 129), (300, 517)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("delta", [5, 13, 20])
+def test_grid_relax_kernel_matches_twin(cuda, shape, delta):
+    rng = np.random.default_rng(shape[0] * 7 + shape[1] + delta)
+    t, f = _grid_case(rng, shape)
+    tent = torch.from_numpy(t).to(cuda)
+    free = torch.from_numpy(f).to(cuda)
+    cases = [(tent, free), (tent, torch.zeros_like(free)),
+             (torch.full_like(tent, INF), free)]
+    for tt, ff in cases:                   # as drawn, all-blocked, all-INF
+        for light in (True, False):
+            for i in (2, (INF - 8) // delta):   # low bucket, wrapping one
+                kw = dict(delta=delta, cost_straight=10, cost_diag=14,
+                          light=light)
+                out = grid_relax_cuda(tt, ff, i, **kw)
+                torch.cuda.synchronize()
+                _equal([out], [grid_relax_ref(tt, ff, i, **kw)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_grid_solver_launches_kernel_on_cuda(cuda, backend):
+    """``GridDeltaSolver`` on the card sweeps through the hand-written
+    kernel for either ``backend`` value, with the default config too."""
+    from repro_torch.core import GridDeltaConfig, GridDeltaSolver
+    from repro_torch.graphs import grid_map
+    _, free = grid_map(40, 57, 0.1, seed=2)
+    src = int(np.flatnonzero(free.ravel())[0])
+    rc = (src // 57, src % 57)
+    before = grid_relax_cuda.launches
+    res = GridDeltaSolver(free, GridDeltaConfig(backend=backend),
+                          device=cuda).solve(rc)
+    launched = grid_relax_cuda.launches - before
+    assert launched == res.outer_iters + res.inner_iters > 0
+    cpu = GridDeltaSolver(free, GridDeltaConfig(), device="cpu").solve(rc)
+    assert torch.equal(res.dist.cpu(), cpu.dist)
+    assert (res.outer_iters, res.inner_iters) == (cpu.outer_iters,
+                                                  cpu.inner_iters)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [0, 3])
 def test_dispatchers_launch_kernels_on_cuda_tensors(cuda, width):
@@ -107,6 +161,7 @@ def test_dispatchers_launch_kernels_on_cuda_tensors(cuda, width):
     from repro_torch.kernels.bucket_scan import bucket_scan
     from repro_torch.kernels.ell_relax import ell_relax
     from repro_torch.kernels.frontier_relax import frontier_relax
+    from repro_torch.kernels.grid_relax import grid_relax
     s = 2000
     rng = np.random.default_rng(width)
     dist = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
@@ -118,7 +173,15 @@ def test_dispatchers_launch_kernels_on_cuda_tensors(cuda, width):
                          .astype(np.int32)).to(cuda)
     w[s] = INF
     fidx = torch.arange(64, dtype=torch.int32, device=cuda)
+    t, f = _grid_case(rng, (40, 50))
+    tent = torch.from_numpy(t).to(cuda)
+    free = torch.from_numpy(f).to(cuda)
     for fn, call, twin in (
+            (grid_relax_cuda,
+             lambda: (grid_relax(tent, free, 1, delta=13, light=True),),
+             lambda: (grid_relax_ref(tent, free, 1, delta=13,
+                                     cost_straight=10, cost_diag=14,
+                                     light=True),)),
             (bucket_scan_cuda,
              lambda: bucket_scan(dist, explored, 1, delta=7),
              lambda: bucket_scan_ref(dist, explored, 1, delta=7)),
