@@ -17,7 +17,8 @@ from repro_torch.kernels.frontier_relax import (
     frontier_relax_cuda,
     frontier_relax_ref,
 )
-from repro_torch.kernels.grid_relax import grid_relax_cuda, grid_relax_ref
+from repro_torch.kernels.grid_relax import (grid_relax_cuda, grid_relax_ref,
+                                            vector_path)
 
 INF = 2**31 - 1
 SEEDS = (0, 1, 2)
@@ -110,21 +111,43 @@ def _grid_case(rng, shape):
     return t.astype(np.int32), rng.random(shape) >= 0.2
 
 
+def _offset_copy(x, offset):
+    """A contiguous copy of ``x`` viewed from a flat buffer at element
+    ``offset`` (``offset`` 1: an int32 view 4 bytes past 16-byte
+    alignment, which the launcher must send down the scalar path)."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 1), (1, 700), (700, 1), (32, 32),
-                                   (37, 129), (300, 517)],
+                                   (37, 129), (300, 517), (37, 4),
+                                   (45, 128), (33, 132), (70, 3000),
+                                   (41, 3)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("delta", [5, 13, 20])
 def test_grid_relax_kernel_matches_twin(cuda, shape, delta):
+    """Both kernel paths: the vector path for W % 4 == 0 (W = 4, 32,
+    128, 132, 3000 here) and the scalar one for every other width and
+    for a ``tent`` 4 bytes past 16-byte alignment; heights that are no
+    multiple of the kernel's row band; a low bucket, one whose values
+    wrap past INF when a cost is added, and one past int32
+    (``i * delta > INT32_MAX``)."""
     rng = np.random.default_rng(shape[0] * 7 + shape[1] + delta)
     t, f = _grid_case(rng, shape)
     tent = torch.from_numpy(t).to(cuda)
     free = torch.from_numpy(f).to(cuda)
+    shifted = _offset_copy(tent, 1)
+    assert not vector_path(shifted, free, torch.empty_like(tent))
+    assert vector_path(tent, free, torch.empty_like(tent)) == \
+        (shape[1] % 4 == 0)
     cases = [(tent, free), (tent, torch.zeros_like(free)),
-             (torch.full_like(tent, INF), free)]
-    for tt, ff in cases:                   # as drawn, all-blocked, all-INF
+             (torch.full_like(tent, INF), free), (shifted, free)]
+    for tt, ff in cases:      # as drawn, all-blocked, all-INF, unaligned
         for light in (True, False):
-            for i in (2, (INF - 8) // delta):   # low bucket, wrapping one
+            for i in (2, (INF - 8) // delta, INF // delta + 1):
                 kw = dict(delta=delta, cost_straight=10, cost_diag=14,
                           light=light)
                 out = grid_relax_cuda(tt, ff, i, **kw)
