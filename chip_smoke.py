@@ -31,20 +31,23 @@
    source, through ``Engine(..., free_mask=free)`` on CUDA
    (``GridPallasBackend``: the ``grid_relax`` stencil and
    ``bucket_scan``). ``grid_relax`` against its twin on sweep inputs
-   recorded from the warm-up solve and on edge cases (1 x 1, 1 x W,
-   H x 1, 37 x 129, all-blocked, all-INF, values within 14 of INF,
-   Δ = 5 / 13 / 20); ``bucket_scan`` against its twin on scan inputs
-   recorded from the same solve (after light sweeps, after heavy
-   passes and before the first sweep). Then the path's main run, with the counters set
-   to 0 just before and read just after: ``SingleSource`` with ``dist``
-   equal to scipy's Dijkstra and ``pred`` a shortest-path tree, and
-   launches equal to ``buckets + inner_iters`` (``grid_relax``) and
-   ``2 * buckets + inner_iters`` (``bucket_scan``). Then
-   ``GridDeltaSolver`` with its default config (dist equal, and
-   ``outer_iters + inner_iters`` launches of the kernel); ``PointToPoint`` to the last free
-   cell and to a cell near the source (distance equal to the
-   single-source ``dist``, a valid path of that weight, fewer buckets
-   for the near target); ``BoundedRadius(1000)`` (the single-source
+   recorded from the warm-up solve and on edge cases on both of its
+   paths (1 x 1, 1 x W, H x 1, widths a multiple of 4 and not, heights
+   no multiple of its row band, a ``tent`` 4 bytes past 16-byte
+   alignment, all-blocked, all-INF, values within 14 of INF, a bucket
+   past int32, Δ = 5 / 13 / 20); ``bucket_scan`` against its twin on
+   scan inputs recorded from the same solve (after light sweeps, after
+   heavy passes and before the first sweep). Then the path's main run,
+   with the counters set to 0 just before and read just after:
+   ``SingleSource`` with ``dist`` equal to scipy's Dijkstra and ``pred``
+   a shortest-path tree, and launches equal to ``buckets +
+   inner_iters`` (``grid_relax``) and ``2 * buckets + inner_iters``
+   (``bucket_scan``). Then ``GridDeltaSolver`` with its default config
+   (dist equal, and ``outer_iters + inner_iters`` launches of the
+   kernel); ``PointToPoint`` to the last free cell and to a cell near
+   the source (distance equal to the single-source ``dist``, a valid
+   path of that weight, fewer buckets for the near target);
+   ``BoundedRadius(1000)`` (the single-source
    answer filtered at 1000); on a 512 x 512 map the grid plan bitwise
    equal to ``edge`` (dist, pred, buckets, inner_iters); median times
    of three of each query after warm-up; one profiled solve.
@@ -54,14 +57,18 @@
    time, idle share and the kernels that take the most device time.
    Per kernel at the main path's shapes: device time per wrapper call
    and its twin's (profiler; CUDA events over back-to-back calls for
-   both where the profiler sees no device time for either), and its
-   bound (the bytes this input
-   needs ÷ 3.35 TB/s, or its integer operations ÷ 67 T/s if larger),
+   both where the profiler sees no device time for either); ``cold_ms``,
+   CUDA events around each call after a 128 MiB write that empties the
+   L2 and a device-side spin in which the host queues the call (both
+   outside the timed window); on the game-map path ``in_solve_ms``,
+   the profiled solve's device time of the kernel over its launches;
+   and its bound (the bytes this input needs ÷ 3.35 TB/s, or its
+   integer operations ÷ 16.7 T/s, the int32 rate, if larger),
    at each path's shapes (``bucket_scan`` runs on both paths: n = 1 M
    and n = 9 M). ``launches`` in the kernels line sums both paths'
    main runs; ``by_path`` gives each path's launches and numbers, and
-   the entry's ``ms``, ``plain_ms`` and ``bound_ms`` are their means
-   weighted by those launches.
+   the entry's ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are
+   their means weighted by those launches.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -80,7 +87,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-ALU_OPS_PER_S = 67e12       # H100 SXM non-tensor-core rate (data sheet)
+# H100 SXM int32 rate: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz (the
+# data sheet's 67 T/s is float32 with an FMA counted as two operations)
+ALU_OPS_PER_S = 16.7e12
+# a write of this many bytes between launches leaves the 50 MB L2 cold
+FLUSH_BYTES = 128 * 2**20
+# device clock cycles (~0.5 ms) of a spin after the flush, in which the
+# host queues the timed call, so host time never enters the window
+QUEUE_CYCLES = 1_000_000
 INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
 # the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
@@ -122,6 +136,24 @@ def timed_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(torch, fn, iters: int, scratch) -> float:
+    """Mean device time per call of ``fn`` with the L2 cold: CUDA events
+    around each call, after a write of ``scratch`` (larger than the L2)
+    and a device-side spin in which the host queues the call, both
+    outside the timed window; one warm-up call first."""
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for k, (start, end) in enumerate(events):
+        scratch.fill_(k)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def profiled(torch, fn, iters: int = 1):
@@ -239,7 +271,8 @@ def game_map_path(torch, np, cuda, counters):
     from repro_torch.graphs import grid_map
     from repro_torch.kernels.bucket_scan import bucket_scan_cuda, \
         bucket_scan_ref
-    from repro_torch.kernels.grid_relax import grid_relax_cuda, grid_relax_ref
+    from repro_torch.kernels.grid_relax import (grid_relax_cuda,
+                                                grid_relax_ref, vector_path)
 
     t0 = time.perf_counter()
     g, free = grid_map(GRID_SIDE, GRID_SIDE, OBSTACLES, seed=0)
@@ -299,33 +332,50 @@ def game_map_path(torch, np, cuda, counters):
         torch.cuda.synchronize()
     lights = [r for r in rec if r[3]["light"]]
     main_case = max(lights, key=lambda r: frontier_size(r[0], r[2]))
+    check(vector_path(main_case[0], main_case[1],
+                      torch.empty_like(main_case[0])),
+          "the full-width sweep does not take the vector path")
     log(f"[kernel] grid_relax: {len(rec)} mid-solve states of {calls[0]} "
         f"sweeps equal to the twin (largest light frontier "
         f"{frontier_size(main_case[0], main_case[2])} cells)")
     rng = np.random.default_rng(1)
-    edge_cases = 0
-    for shape in ((1, 1), (1, 5000), (5000, 1), (37, 129), (1000, 1000)):
+    edge_cases, paths = 0, {True: 0, False: 0}
+    for shape in ((1, 1), (1, 5000), (5000, 1), (37, 129), (1000, 1000),
+                  (37, 4), (45, 128), (33, 132), (70, 3000), (300, 517),
+                  (41, 3)):
         t = rng.integers(0, 60, size=shape).astype(np.int64)
         t[rng.random(shape) < 0.3] = INF
         near = rng.random(shape) < 0.15
         t[near] = INF - rng.integers(1, 15, size=int(near.sum()))
         t = torch.from_numpy(t.astype(np.int32)).to(cuda)
         f = torch.from_numpy(rng.random(shape) >= 0.2).to(cuda)
+        # a contiguous view 4 bytes past 16-byte alignment: scalar path
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        shifted = flat[1:].view(shape)
+        shifted.copy_(t)
+        check(not vector_path(shifted, f, torch.empty_like(t)),
+              "an unaligned tent took the vector path")
+        check(vector_path(t, f, torch.empty_like(t)) == (shape[1] % 4 == 0),
+              "the path does not follow the width")
         for tt, ff in ((t, f), (t, torch.zeros_like(f)),
-                       (torch.full_like(t, INF), f)):
+                       (torch.full_like(t, INF), f), (shifted, f)):
+            paths[vector_path(tt, ff, torch.empty_like(t))] += 1
             for delta in (5, 13, 20):
                 for light in (True, False):
-                    for i in (2, (INF - 8) // delta):
+                    for i in (2, (INF - 8) // delta, INF // delta + 1):
                         kw = dict(delta=delta, cost_straight=10,
                                   cost_diag=14, light=light)
                         same(torch, (grid_relax_cuda(tt, ff, i, **kw),),
                              (grid_relax_ref(tt, ff, i, **kw),))
                         edge_cases += 1
     torch.cuda.synchronize()
-    log(f"[kernel] grid_relax: {edge_cases} edge cases equal to the twin: "
-        "1x1, 1xW, Hx1, 37x129 and 1000x1000 grids; as drawn, all-blocked "
-        "and all-INF; values within 14 of INF in the swept bucket; "
-        "Δ = 5 / 13 / 20, both phases")
+    log(f"[kernel] grid_relax: {edge_cases} edge cases equal to the twin "
+        f"({paths[True]} inputs on the vector path, {paths[False]} on the "
+        "scalar path): 1x1, 1xW, Hx1, widths 1 / 3 / 4 / 128 / 129 / 132 / "
+        "517 / 1000 / 3000 / 5000 at heights no multiple of 32, a tent 4 "
+        "bytes past 16-byte alignment; as drawn, all-blocked and all-INF; "
+        "values within 14 of INF in the swept bucket, a bucket past int32 "
+        "(i * Δ > INT32_MAX); Δ = 5 / 13 / 20, both phases")
 
     # -- 5b'. bucket_scan against its twin at n = 9 M -----------------------
     for (t, e, i), kw, _, _ in scans:
@@ -460,7 +510,16 @@ def game_map_path(torch, np, cuda, counters):
         f"{len(kern)} kernel names")
     for kname, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {ms:9.3f} ms  {kname[:110]}")
-    return launches, per_solve, main_case, scan_case
+    # each kernel's device time in the solve over its launches per solve
+    in_solve = {}
+    for name in ("grid_relax", "bucket_scan"):
+        total = sum(ms for k, ms in kern.items() if f"{name}_kernel" in k)
+        in_solve[name] = total / launches[name] if total > 0 else None
+        log(f"[profile] gamemap/argmin: {name} {total:.1f} ms over "
+            f"{launches[name]} launches in the solve = "
+            + (f"{in_solve[name]:.5f} ms/launch" if total > 0 else
+               "not measured (the profiler saw no device time)"))
+    return launches, per_solve, main_case, scan_case, in_solve
 
 
 def main() -> int:
@@ -710,8 +769,8 @@ def main() -> int:
         f"{statistics.median(rwalls) * 1e3:.1f} ms over 3")
 
     # -- 5. the game-map path ----------------------------------------------
-    launches_gm, per_grid, grid_case, grid_scan_case = game_map_path(
-        torch, np, cuda, counters)
+    launches_gm, per_grid, grid_case, grid_scan_case, in_solve = \
+        game_map_path(torch, np, cuda, counters)
     check(launches_gm["grid_relax"] > 0 and launches_gm["bucket_scan"] > 0,
           "the game-map path did not launch grid_relax and bucket_scan")
     per_solve.update(per_grid)
@@ -747,6 +806,7 @@ def main() -> int:
             log(f"[profile]   {ms:9.3f} ms  {name[:110]}")
 
     kernels = []
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
 
     def entry(name, source, replaces, cases):
         """One kernels-line entry. ``cases`` maps each path that launches
@@ -756,6 +816,7 @@ def main() -> int:
         for path, (kernel_fn, twin_fn, nbytes, ops, err, iters) in \
                 cases.items():
             wrapper_ms = timed_ms(torch, kernel_fn, iters)
+            cold = cold_ms(torch, kernel_fn, iters, scratch)
             kern, _ = profiled(torch, kernel_fn, iters)
             twin, _ = profiled(torch, twin_fn, max(1, iters // 4))
             dev_ms, plain_ms = sum(kern.values()), sum(twin.values())
@@ -771,9 +832,14 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "max_abs_err": err, "ms_how": how, "wrapper_ms": wrapper_ms,
-                "bytes": nbytes, "ops": ops}
+                "cold_ms": cold, "bytes": nbytes, "ops": ops}
+            if path == "gamemap":     # None: the profiler saw no time
+                paths[path]["in_solve_ms"] = in_solve[name]
             log(f"[time] kernel {name} ({path}): {ms:.4f} ms/launch ({how}; "
-                f"events {wrapper_ms:.4f} ms), twin {plain_ms:.4f} ms, bound "
+                f"events {wrapper_ms:.4f} ms; L2 cold {cold:.4f} ms"
+                + (f"; in the solve {in_solve[name]:.4f} ms"
+                   if paths[path].get("in_solve_ms") is not None else "")
+                + f"), twin {plain_ms:.4f} ms, bound "
                 f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, {ops} ops), "
                 f"launches {by_path[path][name]}")
             for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
@@ -789,8 +855,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(p["max_abs_err"] for p in paths.values()),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": mean("bound_ms"),
+            "ms": mean("ms"), "cold_ms": mean("cold_ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": ("bytes" if all(p["bound_by"] == "bytes"
                                         for p in paths.values())
                          else "operations"),

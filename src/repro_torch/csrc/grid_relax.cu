@@ -36,12 +36,17 @@
 //    value comes from the same registers; no shared memory, no barrier.
 // 3. Loads in flight. Before row r is computed, the loads of row
 //    r + 1 + GR_AHEAD are issued, so each warp keeps GR_AHEAD rows
-//    (GR_AHEAD x ~0.5 KB) outstanding. At 3000 x 3000 the grid is
-//    24 strips x 94 chunks = 2256 warps, all resident at once (~17 per
-//    SM), ~27 KB in flight per SM against Little's ~15-20 KB
-//    (3.35 TB/s x ~0.6-0.8 us over 132 SMs). GR_ROWS = 32 keeps the
-//    halo re-read to 6 %; 4 warps per block sit side by side on one
-//    row band so neighbouring strips share halo sectors in L2.
+//    (~0.65 KB each: 512 B of tent, 128 of free, 2 outer cells)
+//    outstanding. At 3000 x 3000 the grid is 24 strips x 94 bands =
+//    2256 warps of GR_ROWS = 32 rows, all resident at once (~17 per SM
+//    at 58-70 registers a thread in the map's two phases), ~22 KB in
+//    flight per SM against Little's ~15-20 KB (3.35 TB/s x ~0.6-0.8 us
+//    over 132 SMs). 32 rows keep the halo re-read at 6 %; 4 warps per
+//    block sit side by side on one row band, so neighbouring strips
+//    share their halo sectors in L2. Measured on an H100 SXM (700 W) at
+//    3000 x 3000, inside the solve: 1 row ahead 0.031 ms, 2-4 rows
+//    0.0284-0.0287; bands of 16 rows 0.030, 24-32 rows 0.0284, 48-64
+//    rows 0.031-0.042 (too few warps); 2 or 8 warps per block as 4.
 // 4. Any H x W. The vector path (one 16-byte int4 load of tent, one
 //    4-byte word of free, one int4 store per lane and row) needs W % 4
 //    == 0, tent and out 16-byte aligned and free 4-byte aligned; the
@@ -53,12 +58,8 @@
 // v + cost wraps like int32 on the TPU (unsigned add).
 #include "common.cuh"
 
-#ifndef GR_ROWS
 #define GR_ROWS 32   // output rows per warp
-#endif
-#ifndef GR_AHEAD
-#define GR_AHEAD 3   // rows whose loads are in flight ahead of row r + 1
-#endif
+#define GR_AHEAD 2   // rows whose loads are in flight ahead of row r + 1
 #define GR_WARPS 4   // warps per block, side by side on one row band
 #define GR_STRIP 128 // columns per warp: 4 per lane
 
@@ -107,7 +108,8 @@ __device__ __forceinline__ GrRaw gr_load(const int *__restrict__ tent,
       }
   }
   if (lane == 0 && c0 > 0) o.el = __ldg(tent + base + c0 - 1);
-  if (lane == 31 && c0 + GR_STRIP < W) o.er = __ldg(tent + base + c0 + GR_STRIP);
+  if (lane == 31 && c0 + GR_STRIP < W)
+    o.er = __ldg(tent + base + c0 + GR_STRIP);
   return o;
 }
 
@@ -182,7 +184,8 @@ __global__ void __launch_bounds__(GR_WARPS * 32)
     const GrCand N = gr_cands<S, D>(nxt, lo, hi, cs, cd, lane);
     int o[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = gr_out<S, D>(P, C, N, cur.v[j], cur.fw, j);
+    for (int j = 0; j < 4; ++j)
+      o[j] = gr_out<S, D>(P, C, N, cur.v[j], cur.fw, j);
     const long long base = (long long)r * W;
     if (VEC) {
       if (c < W)

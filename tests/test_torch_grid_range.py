@@ -29,7 +29,7 @@ def _in_bucket(v: int, i: int, delta: int) -> bool:
 def _buckets(delta: int):
     top = INF // delta
     return sorted({0, 1, 2, 7, top - 1, top, top + 1, top + 2,
-                   INT32_MIN // -delta + 1, 2**31, 2**40})
+                   2**31 // delta + 1, 2**31, 2**40})
 
 
 def _values(i: int, delta: int):
