@@ -45,8 +45,8 @@
 //    block sit side by side on one row band, so neighbouring strips
 //    share their halo sectors in L2. Measured on an H100 SXM (700 W) at
 //    3000 x 3000, inside the solve: 1 row ahead 0.031 ms, 2-4 rows
-//    0.0284-0.0287; bands of 16 rows 0.030, 24-32 rows 0.0284, 48-64
-//    rows 0.031-0.042 (too few warps); 2 or 8 warps per block as 4.
+//    0.0285-0.0287; bands of 16 rows 0.030, 24-32 rows 0.0284-0.0285,
+//    48-64 rows 0.031-0.042 (too few warps); 2 or 8 warps per block as 4.
 // 4. Any H x W. The vector path (one 16-byte int4 load of tent, one
 //    4-byte word of free, one int4 store per lane and row) needs W % 4
 //    == 0, tent and out 16-byte aligned and free 4-byte aligned; the
