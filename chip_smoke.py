@@ -70,6 +70,35 @@
    the entry's ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are
    their means weighted by those launches.
 
+8. Batched queries and frontier policies, on the graphs above (run
+   after phase 4; the game-map part at the end of phase 5). On the
+   1 M-vertex small-world graph: ``MultiSource`` of 8 fixed sources (0
+   and seven spread ids) on ``edge`` and ``ell`` (one ``[B, n]`` loop,
+   fewer host syncs than the lanes' single solves together), of 2
+   sources on ``pallas`` and ``fused`` (lane by lane through the
+   kernels, launches equal to the lanes' per-solve equations); every
+   lane bitwise equal to ``edge``'s ``SingleSource`` of its source
+   (phase 3 holds every strategy's single solve bitwise equal to
+   ``edge``'s), and lane 3 equal to scipy's Dijkstra. ``ManyToMany`` (16
+   sources, 1000 targets, tile 8, ``edge``) equal to the ``MultiSource``
+   rows. ``frontier_cap=4096`` on ``ell``, ``pallas`` and ``fused``:
+   without fallback the solve reports overflow; with ``fallback=True``
+   it answers as the uncapped plan of phase 3, with
+   ``telemetry.fallback`` and ``explain()["fallback_taken"]`` set.
+   ``rho`` (default ρ) and ``radius`` (k = 4) on ``edge`` and ``pallas``:
+   ``dist`` and argmin ``pred`` equal to the delta answer, two
+   ``ell_relax`` launches per policy step on ``pallas`` and no bucket
+   scan; ``PointToPoint`` and ``BoundedRadius`` under ``rho``. On the
+   game map: ``MultiSource`` of 2 sources on the grid plan, each lane
+   equal to its single solve, launches equal to the lanes' equations.
+   Wall times (median of 3; one timed run for the lane-by-lane
+   batches, ``ell``'s batch, ``ManyToMany`` and the fallback), host
+   syncs and launches per path; each path's counters are
+   set to 0 just before it and read just after, and its launches join
+   ``by_path`` in the kernels line (``*_multisource``, ``*_policy``;
+   ``ell_relax`` is also timed on the largest input of the policy
+   path).
+
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -104,6 +133,13 @@ GRID_PICKS = frozenset({0, 1, 2, 3, 100, 101, 102, 1000, 1001, 1002,
                         3000, 3001, 3002, 6000, 6001, 6002})
 # bucket_scan calls of the warm-up solve whose inputs are kept
 SCAN_PICKS = frozenset(range(0, 13000, 500)) | {1, 2, 3, 4, 5, 6}
+# phase 8: 0 and seven spread sources; 16 sources and 1000 targets for
+# ManyToMany (its first tile is BATCH_SOURCES); the capped plans' cap
+BATCH_SOURCES = (0, 131_071, 262_147, 393_209, 524_287, 655_357, 786_431,
+                 917_503)
+M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
+                               720_887, 851_957, 999_999)
+M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
 
 
 def check(cond, what: str) -> None:
@@ -265,8 +301,8 @@ def game_map_path(torch, np, cuda, counters):
     ``bucket_scan`` inputs with the largest frontier, to time the
     kernels on."""
     import repro_torch.core.backends as backends
-    from repro_torch.api import (BoundedRadius, Engine, PointToPoint,
-                                 SingleSource)
+    from repro_torch.api import (BoundedRadius, Engine, MultiSource,
+                                 PointToPoint, SingleSource)
     from repro_torch.core import DeltaConfig, GridDeltaConfig, GridDeltaSolver
     from repro_torch.graphs import grid_map
     from repro_torch.kernels.bucket_scan import bucket_scan_cuda, \
@@ -502,6 +538,34 @@ def game_map_path(torch, np, cuda, counters):
             f"{plan.host_syncs}, buckets={a.telemetry.buckets}, "
             f"inner_iters={a.telemetry.inner_iters}")
 
+    # -- 8 (game map). MultiSource on the grid plan, lane by lane -----------
+    free_ids = np.flatnonzero(free.ravel())
+    pair = [src, int(free_ids[free_ids.shape[0] // 2])]
+    second = plan.solve(SingleSource(pair[1]))
+    second_syncs = plan.host_syncs
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    m = plan.solve(MultiSource(pair))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_multi = {k: fn.launches for k, fn in counters.items()}
+    same_lanes(torch, m, [r, second], "gamemap MultiSource")
+    mt = m.telemetry
+    b, inner = int(mt.buckets.sum()), int(mt.inner_iters.sum())
+    check(launches_multi["grid_relax"] == b + inner,
+          "gamemap MultiSource: grid_relax launches != buckets + inner_iters")
+    check(launches_multi["bucket_scan"] == 2 * b + inner,
+          "gamemap MultiSource: bucket_scan launches != 2 * buckets + "
+          "inner_iters")
+    check(plan.host_syncs == tel.buckets * 2 + tel.inner_iters + 1
+          + second_syncs, "gamemap MultiSource: host syncs != the lanes'")
+    log(f"[batch] gamemap MultiSource {pair}: lanes == SingleSource, "
+        f"buckets={mt.buckets.tolist()} inner_iters={mt.inner_iters.tolist()}"
+        f" host_syncs={plan.host_syncs} launches {json.dumps(launches_multi)}"
+        f"; one timed run {wall * 1e3:.1f} ms = {wall * 1e3 / 2:.1f} "
+        "ms/source")
+
     # -- 5h. where a grid solve's device time goes --------------------------
     kern, wall = profiled(torch, lambda: plan.solve(SingleSource(src)))
     busy = sum(kern.values())
@@ -519,7 +583,240 @@ def game_map_path(torch, np, cuda, counters):
             f"{launches[name]} launches in the solve = "
             + (f"{in_solve[name]:.5f} ms/launch" if total > 0 else
                "not measured (the profiler saw no device time)"))
-    return launches, per_solve, main_case, scan_case, in_solve
+    return launches, per_solve, main_case, scan_case, in_solve, launches_multi
+
+
+def same_lanes(torch, multi, singles, tag: str) -> None:
+    """Each lane of a ``MultiSource`` answer is bitwise its single solve:
+    dist, pred, buckets, inner_iters and overflow."""
+    t = multi.telemetry
+    check(multi.dist.shape[0] == len(singles), f"{tag}: lane count")
+    for b, one in enumerate(singles):
+        check(torch.equal(multi.dist[b], one.dist)
+              and torch.equal(multi.pred[b], one.pred),
+              f"{tag} lane {b}: dist/pred differ from SingleSource")
+        check((int(t.buckets[b]), int(t.inner_iters[b]), bool(t.overflow[b]))
+              == (one.telemetry.buckets, one.telemetry.inner_iters,
+                  one.telemetry.overflow), f"{tag} lane {b}: counters differ")
+
+
+def walls_ms(torch, fn, reps: int):
+    """``reps`` runs of ``fn``, each ended by a synchronize: the last
+    result and the wall times in ms."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, walls
+
+
+def fmt(walls) -> str:
+    return (f"median {statistics.median(walls):.1f} ms of {len(walls)} ("
+            + ", ".join(f"{x:.1f}" for x in walls) + ")")
+
+
+def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
+                          counters):
+    """Phase 8 on the 1 M-vertex small-world graph: batched queries, the
+    overflow fallback and the frontier policies (see the module note).
+    Returns the launches of the ``pallas``/``fused`` ``MultiSource`` path
+    and of the ``pallas`` policy path, and the largest ``ell_relax``
+    input recorded on the policy path."""
+    import repro_torch.core.backends as backends
+    from repro_torch.api import (BoundedRadius, Engine, ManyToMany,
+                                 MultiSource, PointToPoint, SingleSource)
+    from repro_torch.core import DeltaConfig
+
+    t_phase = time.perf_counter()
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # -- 8a. single solves on edge: the lanes' reference ------------------
+    edge = plans[("edge", "argmin")]
+    single, single_syncs, single_walls = {}, {}, []
+    for s in BATCH_SOURCES:
+        one, w = walls_ms(torch, lambda: edge.solve(SingleSource(s)), 1)
+        single[s], single_syncs[s] = one, edge.host_syncs
+        single_walls += w
+    check(torch.equal(single[0].dist, results[("edge", "argmin")][0].dist),
+          "edge SingleSource(0) changed since phase 3")
+    log(f"[batch] edge SingleSource of the 8 sources: {fmt(single_walls)}, "
+        f"host_syncs {sum(single_syncs.values())} together, buckets "
+        f"{[single[s].telemetry.buckets for s in BATCH_SOURCES]}")
+
+    # -- 8b. MultiSource on edge and ell: one [B, n] loop -----------------
+    batch = {}
+    # ell's batch takes ~11 s on the H100 (8 lanes of the sentinel-slot
+    # scatter, PERF.md §6) and its runs spread by 0.1 %: one timed run
+    for st, reps in (("edge", 3), ("ell", 1)):
+        plan = plans[(st, "argmin")]
+        zero()
+        res, walls = walls_ms(
+            torch, lambda: plan.solve(MultiSource(list(BATCH_SOURCES))), reps)
+        check(all(v == 0 for v in read().values()),
+              f"{st} MultiSource launched a kernel")
+        same_lanes(torch, res, [single[s] for s in BATCH_SOURCES],
+                   f"{st} MultiSource")
+        check(plan.host_syncs < sum(single_syncs.values()),
+              f"{st} MultiSource: no fewer host syncs than its lanes")
+        batch[st] = res
+        log(f"[batch] {st} MultiSource x{len(BATCH_SOURCES)} (one [B, n] "
+            f"loop): lanes == SingleSource, host_syncs={plan.host_syncs} "
+            f"(lanes alone: {sum(single_syncs.values())}); {fmt(walls)} = "
+            f"{statistics.median(walls) / len(BATCH_SOURCES):.1f} ms/source "
+            f"(edge SingleSource median "
+            f"{statistics.median(single_walls):.1f} ms)")
+    lane = 3
+    dref, _ = oracle_dist(g, BATCH_SOURCES[lane])
+    check(np.array_equal(batch["edge"].dist[lane].cpu().numpy()
+                         .astype(np.int64), dref),
+          "edge MultiSource lane 3 differs from the scipy oracle")
+    log(f"[batch] lane {lane} (source {BATCH_SOURCES[lane]}) == scipy "
+        "dijkstra")
+
+    # -- 8c. MultiSource on pallas and fused: lane by lane ----------------
+    pair = [0, BATCH_SOURCES[4]]
+    zero()
+    for st in ("pallas", "fused"):
+        plan = plans[(st, "argmin")]
+        before = read()
+        res, walls = walls_ms(torch, lambda: plan.solve(MultiSource(pair)), 1)
+        got = {k: v - before[k] for k, v in read().items()}
+        same_lanes(torch, res, [single[s] for s in pair], f"{st} MultiSource")
+        t = res.telemetry
+        b, inner = int(t.buckets.sum()), int(t.inner_iters.sum())
+        if st == "pallas":
+            check(got["bucket_scan"] == 2 * b + inner
+                  and got["ell_relax"] == b + inner,
+                  "pallas MultiSource: launches off the lanes' equations")
+        else:
+            check(got["frontier_relax"] == b + inner
+                  and got["bucket_scan"] == b,
+                  "fused MultiSource: launches off the lanes' equations")
+        check(plan.host_syncs == sum(single_syncs[s] for s in pair),
+              f"{st} MultiSource: host syncs != the lanes'")
+        log(f"[batch] {st} MultiSource {pair} (lane by lane): lanes == "
+            f"SingleSource, host_syncs={plan.host_syncs}, launches "
+            f"{json.dumps(got)}; one timed run {walls[0]:.1f} ms = "
+            f"{walls[0] / len(pair):.1f} ms/source")
+    launches_multi = read()
+
+    # -- 8d. ManyToMany against the MultiSource rows ----------------------
+    targets = np.random.default_rng(2).choice(g.n_nodes, size=M2M_TARGETS,
+                                              replace=False).tolist()
+    m2m, walls = walls_ms(torch, lambda: edge.solve(
+        ManyToMany(list(M2M_SOURCES), targets, tile=M2M_TILE)), 1)
+    rest = edge.solve(MultiSource(list(M2M_SOURCES[M2M_TILE:])))
+    rows = torch.cat([batch["edge"].dist, rest.dist])[:, targets]
+    check(m2m.matrix.dtype == torch.int64
+          and torch.equal(m2m.matrix, rows.cpu().to(torch.int64)),
+          "ManyToMany differs from the MultiSource rows")
+    tiles = (batch["edge"].telemetry, rest.telemetry)
+    check(m2m.telemetry.buckets == max(int(t.buckets.max()) for t in tiles)
+          and m2m.telemetry.inner_iters == sum(int(t.inner_iters.sum())
+                                              for t in tiles),
+          "ManyToMany telemetry")
+    log(f"[batch] ManyToMany {len(M2M_SOURCES)} x {M2M_TARGETS} (tile "
+        f"{M2M_TILE}, edge) == MultiSource rows; one timed run "
+        f"{walls[0]:.1f} ms, buckets={m2m.telemetry.buckets} "
+        f"inner_iters={m2m.telemetry.inner_iters}")
+
+    # -- 8e. a capped frontier, with and without the fallback -------------
+    for st in ("ell", "pallas", "fused"):
+        cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin",
+                          frontier_cap=CAP)
+        raw = Engine(g, cfg, device=cuda).plan().solve(SingleSource(0))
+        check(raw.telemetry.overflow and not raw.telemetry.fallback,
+              f"{st} cap {CAP}: no overflow reported")
+        plan = Engine(g, cfg, device=cuda).plan(fallback=True)
+        res, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
+        full = results[(st, "argmin")][0]
+        check(res.telemetry.fallback and plan.explain()["fallback_taken"],
+              f"{st} cap {CAP}: the fallback did not answer")
+        check(torch.equal(res.dist, full.dist)
+              and torch.equal(res.pred, full.pred)
+              and (res.telemetry.buckets, res.telemetry.inner_iters,
+                   res.telemetry.overflow) == (full.telemetry.buckets,
+                                               full.telemetry.inner_iters,
+                                               False),
+              f"{st} cap {CAP}: the fallback answer differs from phase 3's")
+        log(f"[batch] {st} frontier_cap={CAP}: overflow reported without "
+            f"fallback (buckets={raw.telemetry.buckets}); with fallback "
+            f"== the uncapped plan, telemetry.fallback set, "
+            f"host_syncs={plan.host_syncs} (capped + full), "
+            f"{walls[0]:.1f} ms")
+
+    # -- 8f. frontier policies on edge and pallas -------------------------
+    base = results[("edge", "argmin")][0]
+    rec, real_er = [None], backends.ell_relax
+
+    def recorder(fidx, dist, w_ell):
+        m = int((fidx < g.n_nodes).sum())
+        if rec[0] is None or m > rec[0][1]:
+            rec[0] = ((fidx.clone(), dist.clone(), w_ell), m)
+        return real_er(fidx, dist, w_ell)
+
+    launches_policy = dict.fromkeys(counters, 0)
+    rho_edge = None
+    for policy, extra in (("rho", {}), ("radius", dict(radius_k=RADIUS_K))):
+        for st in ("edge", "pallas"):
+            cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin",
+                              policy=policy, **extra)
+            plan = Engine(g, cfg, device=cuda).plan()
+            zero()
+            backends.ell_relax = recorder
+            try:
+                res = plan.solve(SingleSource(0))
+                torch.cuda.synchronize()
+            finally:
+                backends.ell_relax = real_er
+            got = read()
+            t = res.telemetry
+            check(torch.equal(res.dist, base.dist)
+                  and torch.equal(res.pred, base.pred),
+                  f"{st}/{policy}: dist/pred differ from the delta answer")
+            check(got["bucket_scan"] == 0 and got["ell_relax"] == (
+                2 * t.inner_iters if st == "pallas" else 0),
+                f"{st}/{policy}: ell_relax launches != 2 * steps")
+            if st == "pallas":
+                for k, v in got.items():
+                    launches_policy[k] += v
+            syncs = plan.host_syncs
+            _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 3)
+            log(f"[policy] {st}/{policy}"
+                f"{'' if policy == 'rho' else f' k={RADIUS_K}'}: dist/pred "
+                f"== delta, rounds={t.buckets} steps={t.inner_iters} "
+                f"overflow={t.overflow} host_syncs={syncs} launches "
+                f"{json.dumps(got)}; {fmt(walls)} after the checked run")
+            if (policy, st) == ("rho", "edge"):
+                rho_edge = plan
+    check(rec[0] is not None, "no ell_relax input recorded on the policy "
+          "path")
+    dist = base.dist.cpu().numpy()
+    far = int(np.argmax(dist))
+    p2p = rho_edge.solve(PointToPoint(0, far))
+    check(p2p.distance == int(dist[far]), "rho PointToPoint distance")
+    check_path(p2p.path, 0, far, p2p.distance, keyed, g.n_nodes)
+    radius = int(dist.max()) // 2
+    bnd = rho_edge.solve(BoundedRadius(0, radius))
+    within = base.dist <= radius
+    check(torch.equal(bnd.dist, torch.where(within, base.dist, INF))
+          and torch.equal(bnd.pred, torch.where(within, base.pred, -1)),
+          "rho BoundedRadius differs from the filtered delta answer")
+    log(f"[policy] edge/rho PointToPoint 0->{far}: distance {p2p.distance} "
+        f"== delta, path valid, rounds={p2p.telemetry.buckets}; "
+        f"BoundedRadius({radius}) == delta filtered "
+        f"({int(within.sum())} vertices), rounds={bnd.telemetry.buckets}")
+    log(f"[batch] phase 8 (small-world) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches_multi, launches_policy, rec[0]
 
 
 def main() -> int:
@@ -768,14 +1065,31 @@ def main() -> int:
         f"host_syncs={rplan.host_syncs} median solve "
         f"{statistics.median(rwalls) * 1e3:.1f} ms over 3")
 
+    # -- 8. batched queries and frontier policies (small-world part) -------
+    launches_bm, launches_pol, policy_case = batch_and_policy_path(
+        torch, np, cuda, g, keyed, plans, results, counters)
+    check(launches_bm["bucket_scan"] > 0 and launches_bm["ell_relax"] > 0
+          and launches_bm["frontier_relax"] > 0,
+          "the batched path did not launch bucket_scan, ell_relax and "
+          "frontier_relax")
+    check(launches_pol["ell_relax"] > 0,
+          "the policy path did not launch ell_relax")
+
     # -- 5. the game-map path ----------------------------------------------
-    launches_gm, per_grid, grid_case, grid_scan_case, in_solve = \
-        game_map_path(torch, np, cuda, counters)
+    launches_gm, per_grid, grid_case, grid_scan_case, in_solve, \
+        launches_gm_multi = game_map_path(torch, np, cuda, counters)
     check(launches_gm["grid_relax"] > 0 and launches_gm["bucket_scan"] > 0,
           "the game-map path did not launch grid_relax and bucket_scan")
+    check(launches_gm_multi["grid_relax"] > 0
+          and launches_gm_multi["bucket_scan"] > 0,
+          "the game-map MultiSource did not launch grid_relax and "
+          "bucket_scan")
     per_solve.update(per_grid)
-    launches = {k: launches_sw[k] + launches_gm[k] for k in counters}
-    by_path = {"smallworld": launches_sw, "gamemap": launches_gm}
+    by_path = {"smallworld": launches_sw, "gamemap": launches_gm,
+               "smallworld_multisource": launches_bm,
+               "smallworld_policy": launches_pol,
+               "gamemap_multisource": launches_gm_multi}
+    launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     # -- 6. times -----------------------------------------------------------
     for key, plan in plans.items():
@@ -808,10 +1122,16 @@ def main() -> int:
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
 
+    # the lane-by-lane batches make each lane's single-solve calls: timed
+    # at the single solves' recorded inputs
+    aliases = {"smallworld_multisource": "smallworld",
+               "gamemap_multisource": "gamemap"}
+
     def entry(name, source, replaces, cases):
         """One kernels-line entry. ``cases`` maps each path that launches
         the kernel to ``(kernel_fn, twin_fn, nbytes, ops, err, iters)`` at
-        that path's main-run shapes."""
+        that path's main-run shapes; a path of ``aliases`` reuses its
+        base path's numbers with its own launches."""
         paths = {}
         for path, (kernel_fn, twin_fn, nbytes, ops, err, iters) in \
                 cases.items():
@@ -844,6 +1164,10 @@ def main() -> int:
                 f"launches {by_path[path][name]}")
             for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
                 log(f"[time]   {kms:.4f} ms  {kname[:100]}")
+        for alias, base_path in aliases.items():
+            if by_path[alias][name] > 0:
+                paths[alias] = dict(paths[base_path], timed_as=base_path,
+                                    launches=by_path[alias][name])
         total = sum(p["launches"] for p in paths.values())
         check(total == launches[name], f"{name}: a launching path is not "
               "timed")
@@ -879,16 +1203,22 @@ def main() -> int:
           "src/repro/kernels/bucket_scan/bucket_scan.py:36",
           {"smallworld": scan_case(t_, e_, i_, DELTA),
            "gamemap": scan_case(gt_, ge_, gi_, gkw["delta"])})
+
+    def relax_case(fidx, dist, w_ell, m):
+        cap, dd = fidx.shape[0], w_ell.shape[1]
+        return (lambda: ell_relax_cuda(fidx, dist, w_ell),
+                lambda: ell_relax_ref(fidx, dist, w_ell),
+                4 * cap + 4 * m + 4 * dd * (m + int(m < cap)) + 4 * cap * dd,
+                4 * cap * dd,
+                same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
+                     (ell_relax_ref(fidx, dist, w_ell),)), 20)
+
     (fidx, dist, w_ell), kw, m = main_case["ell_relax"]
-    cap, dd = fidx.shape[0], w_ell.shape[1]
+    (pfidx, pdist, pw_ell), pm = policy_case
     entry("ell_relax", "src/repro_torch/csrc/ell_relax.cu",
-          "src/repro/kernels/ell_relax/ell_relax.py:29", {"smallworld": (
-              lambda: ell_relax_cuda(fidx, dist, w_ell),
-              lambda: ell_relax_ref(fidx, dist, w_ell),
-              4 * cap + 4 * m + 4 * dd * (m + int(m < cap)) + 4 * cap * dd,
-              4 * cap * dd,
-              same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
-                   (ell_relax_ref(fidx, dist, w_ell),)), 20)})
+          "src/repro/kernels/ell_relax/ell_relax.py:29",
+          {"smallworld": relax_case(fidx, dist, w_ell, m),
+           "smallworld_policy": relax_case(pfidx, pdist, pw_ell, pm)})
     (d, e, i, nbr, w), kw, pop = main_case["frontier_relax"]
     cap, dd = kw["cap"], w.shape[1]
     filled = min(pop, cap)

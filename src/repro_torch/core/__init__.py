@@ -16,8 +16,18 @@ from repro_torch.core.delta_stepping import (
     P2P_MODES,
     POLICIES,
     DeltaConfig,
+    DeltaSteppingSolver,
     SSSPResult,
+    delta_stepping,
     pred_argmin,
+)
+from repro_torch.core.policies import (
+    DeltaPolicy,
+    RadiiStore,
+    RadiusPolicy,
+    RhoPolicy,
+    compute_radii,
+    make_policy,
 )
 from repro_torch.core.grid import (
     GridDeltaConfig,
@@ -35,7 +45,15 @@ __all__ = [
     "P2P_MODES",
     "POLICIES",
     "DeltaConfig",
+    "DeltaSteppingSolver",
     "SSSPResult",
+    "delta_stepping",
+    "DeltaPolicy",
+    "RhoPolicy",
+    "RadiusPolicy",
+    "RadiiStore",
+    "compute_radii",
+    "make_policy",
     "edge_sweep",
     "pred_argmin",
     "RelaxBackend",

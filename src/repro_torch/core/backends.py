@@ -25,6 +25,13 @@ any, next_bucket)``, plus host-side preprocessing in ``build``. Its
 tensors live on one device; on CUDA the kernels run, on the CPU their
 plain twins (the ops dispatchers decide by the tensor's device).
 
+Batched sources: ``edge`` and ``ell`` (``supports_vmap``, the
+reference's split) also sweep and scan a whole ``[B, n]`` batch at once
+(``sweep_many`` / ``scan_many``), every lane with its own bucket index,
+compaction and overflow flag — the tensor form of the reference's
+``vmap``. The kernel strategies run a batch lane by lane, as the
+reference runs them under ``lax.map``.
+
 The reference leans on ``jnp.take(..., mode="fill")`` and
 ``.at[].min(..., mode="drop")`` for the sentinel id ``n``. Torch raises
 on out-of-range indices, so every gather through an index that may be
@@ -135,13 +142,14 @@ def scan_bucket(dist, explored, bucket_i, *, delta: int):
     """Fused dense-bucket scan (paper C1): the frontier mask of bucket
     ``bucket_i``, its any-reduce, and the next bucket holding unexplored
     work (``dist < explored``) — the tensor twin of
-    ``kernels/bucket_scan``."""
+    ``kernels/bucket_scan``. Over ``[B, n]`` lanes, ``bucket_i`` is a
+    per-lane int32[B, 1] and the two reductions are per lane."""
     fin = dist < _INF
     b = torch.where(fin, dist // delta, _IMAX)
     unsettled = dist < explored
     frontier = fin & (b == bucket_i) & unsettled
-    nxt = torch.where((b > bucket_i) & unsettled, b, _IMAX).min()
-    return frontier, frontier.any(), nxt
+    nxt = torch.where((b > bucket_i) & unsettled, b, _IMAX).amin(-1)
+    return frontier, frontier.any(-1), nxt
 
 
 def edge_candidates(d_src, f_src, w, *, delta: int, light: bool):
@@ -157,28 +165,31 @@ def edge_relax_words(tent, frontier, src, dst, w, *, delta: int, light: bool,
                      packed: bool, canonical: bool = False):
     """Candidate words of one edge-array relaxation: frontier/phase mask,
     C4 early filter against the destination, word packing. ``src`` /
-    ``dst`` are in-range vertex ids. With ``canonical`` (packed mode on
-    a w >= 1 graph) a word passes when it beats the destination's
-    current *word*; otherwise the strict distance comparison applies."""
+    ``dst`` are in-range vertex ids, shared by every lane of a ``[B, n]``
+    ``tent``. With ``canonical`` (packed mode on a w >= 1 graph) a word
+    passes when it beats the destination's current *word*; otherwise the
+    strict distance comparison applies."""
     d = dist_of(tent, packed)
-    cand, ok = edge_candidates(d[src], frontier[src], w, delta=delta,
-                               light=light)
+    cand, ok = edge_candidates(d[..., src], frontier[..., src], w,
+                               delta=delta, light=light)
     if packed and canonical:
         word = packing.pack(cand, src)
-        ok = ok & (word < tent[dst])          # C4 on (cost, pred) word order
+        ok = ok & (word < tent[..., dst])     # C4 on (cost, pred) word order
         return torch.where(ok, word, packing.INF_PACKED)
-    ok = ok & (cand < d[dst])                 # C4: early filter before scatter
+    ok = ok & (cand < d[..., dst])            # C4: early filter before scatter
     return candidate_words(cand, src, ok, packed)
 
 
 def edge_sweep(tent, frontier, src, dst, w, *, delta: int, light: bool,
                packed: bool, canonical: bool = False, dst64=None):
-    """One relaxation sweep over an edge array (scatter-min into tent).
-    ``dst64`` is ``dst`` as int64, when the caller keeps one."""
+    """One relaxation sweep over an edge array (scatter-min into tent,
+    per lane of a ``[B, n]`` tent). ``dst64`` is ``dst`` as int64, when
+    the caller keeps one."""
     words = edge_relax_words(tent, frontier, src, dst, w, delta=delta,
                              light=light, packed=packed, canonical=canonical)
     idx = dst.to(torch.int64) if dst64 is None else dst64
-    return tent.scatter_reduce(0, idx, words, "amin", include_self=True)
+    return tent.scatter_reduce(-1, idx.expand_as(words), words, "amin",
+                               include_self=True)
 
 
 def ell_relax_words(tent, fidx, rows_n, rows_w, *, n: int, packed: bool,
@@ -211,14 +222,64 @@ def ell_sweep(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
     return _scatter_min(tent, rows_n, words, inf_word(packed))
 
 
+def _rows_take(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """Per-lane ``_take``: ``x`` [B, n], ``idx`` [B, ...] in [0, n]."""
+    ext = torch.cat([x, x.new_full((x.shape[0], 1), fill)], dim=1)
+    flat = idx.reshape(idx.shape[0], -1).to(torch.int64)
+    return ext.gather(1, flat).reshape(idx.shape)
+
+
+def ell_sweep_many(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
+                   canonical: bool = False):
+    """``ell_sweep`` over ``[B, n]`` lanes; ``fidx`` int32[B, cap] holds
+    each lane's compacted rows (sentinel n), and each lane's padding
+    words land in its own discarded slot n."""
+    rows_n = nbr[fidx]                      # (B, cap, D)
+    rows_w = w_ell[fidx]
+    d = dist_of(tent, packed)
+    d_f = _rows_take(d, fidx, _INF)[..., None]
+    valid = (rows_n < n) & (rows_w < _INF) & (d_f < _INF)
+    cand = torch.where(valid, d_f, 0) + torch.where(valid, rows_w, 0)
+    src_ids = fidx[..., None].expand(rows_n.shape)
+    if packed and canonical:
+        word = packing.pack(cand, src_ids)
+        ok = valid & (word < _rows_take(tent, rows_n, packing.INF_PACKED))
+        words = torch.where(ok, word, packing.INF_PACKED)
+    else:
+        ok = valid & (cand < _rows_take(d, rows_n, _INF))
+        words = candidate_words(cand, src_ids, ok, packed)
+    b = tent.shape[0]
+    ext = torch.cat([tent, tent.new_full((b, 1), inf_word(packed))], dim=1)
+    ext.scatter_reduce_(1, rows_n.reshape(b, -1).to(torch.int64),
+                        words.reshape(b, -1), "amin", include_self=True)
+    return ext[:, :n]
+
+
+def compact_many(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
+    """``compact_ref`` per lane of ``mask`` bool[B, n]: each lane's
+    ascending set indices, truncated at ``cap``, padded with ``fill`` —
+    ``jnp.nonzero(size=cap, fill_value=fill)`` under ``vmap``."""
+    b, n = mask.shape
+    rank = torch.cumsum(mask, 1, dtype=torch.int32) - 1
+    slot = torch.where(mask & (rank < cap), rank, cap).to(torch.int64)
+    buf = torch.full((b, cap + 1), fill, dtype=torch.int32,
+                     device=mask.device)
+    ids = torch.arange(n, dtype=torch.int32, device=mask.device)
+    buf.scatter_(1, slot, ids.expand(b, n))
+    return buf[:, :cap]
+
+
 # ---------------------------------------------------------------------------
 # backends
 # ---------------------------------------------------------------------------
 
 class RelaxBackend:
     """Strategy protocol consumed by the solve loop (methods only; concrete
-    backends are frozen dataclasses of tensors)."""
+    backends are frozen dataclasses of tensors). A backend with
+    ``supports_vmap`` also provides ``sweep_many`` and ``scan_many`` over
+    ``[B, n]`` lanes."""
 
+    supports_vmap = True
     delta: int
 
     def sweep(self, tent, mask, bucket_i, *, light: bool, packed: bool):
@@ -226,6 +287,10 @@ class RelaxBackend:
 
     def scan(self, dist, explored, bucket_i):
         return scan_bucket(dist, explored, bucket_i, delta=self.delta)
+
+    def scan_many(self, dist, explored, bucket_i):
+        return scan_bucket(dist, explored, bucket_i[:, None],
+                           delta=self.delta)
 
 
 class _FrontierCompactMixin:
@@ -274,7 +339,11 @@ class EdgeBackend(RelaxBackend):
         tent = edge_sweep(tent, mask, self.src, self.dst, self.w,
                           delta=self.delta, light=light, packed=packed,
                           canonical=self.canonical, dst64=self.dst64)
-        return tent, torch.zeros((), dtype=torch.bool, device=tent.device)
+        return tent, torch.zeros(tent.shape[:-1], dtype=torch.bool,
+                                 device=tent.device)
+
+    def sweep_many(self, tent, mask, *, light: bool, packed: bool):
+        return self.sweep(tent, mask, None, light=light, packed=packed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,6 +372,13 @@ class EllBackend(_FrontierCompactMixin, RelaxBackend):
                          canonical=self.canonical)
         return tent, over
 
+    def sweep_many(self, tent, mask, *, light: bool, packed: bool):
+        fidx = compact_many(mask, self.cap, self.n)
+        ell = self.light if light else self.heavy
+        tent = ell_sweep_many(tent, fidx, ell.nbr, ell.w, n=self.n,
+                              packed=packed, canonical=self.canonical)
+        return tent, mask.sum(1) > self.cap
+
 
 @dataclasses.dataclass(frozen=True)
 class PallasEllBackend(_FrontierCompactMixin, _PallasScanMixin,
@@ -311,7 +387,9 @@ class PallasEllBackend(_FrontierCompactMixin, _PallasScanMixin,
     candidates from ``kernels/ell_relax`` and every bucket scan on
     ``kernels/bucket_scan``. The C4 filter and the scatter-min stay in
     tensor code, so the kernels only ever see int32 distances and
-    packed (dist, pred) words still work."""
+    packed (dist, pred) words still work. A batch runs lane by lane."""
+
+    supports_vmap = False
 
     light: ELLGraph
     heavy: ELLGraph
@@ -355,9 +433,10 @@ class FusedBackend(_FrontierCompactMixin, RelaxBackend):
     ELL rows, the any-reduce and the next-bucket min, and the candidate
     words flow through ``ell_relax_words`` into a scatter-min. The heavy
     pass and any generic ``sweep`` use the plain compact-and-expand of
-    ``EllBackend``."""
+    ``EllBackend``. A batch runs lane by lane."""
 
     supports_fused_light = True
+    supports_vmap = False
 
     light: ELLGraph
     heavy: ELLGraph
@@ -418,7 +497,10 @@ class GridPallasBackend(_PallasScanMixin, RelaxBackend):
     bucket membership from ``tent`` in-kernel, so the driver's mask
     argument is advisory; re-relaxing settled cells is idempotent (the
     paper's redundant-work trade). int32 distances only
-    (``pred_mode='packed'`` is refused by ``make_backend``)."""
+    (``pred_mode='packed'`` is refused by ``make_backend``). A batch
+    runs lane by lane."""
+
+    supports_vmap = False
 
     free: torch.Tensor                    # bool[H, W] occupancy mask
     delta: int
@@ -478,12 +560,14 @@ __all__ = [
     "PallasEllBackend",
     "RelaxBackend",
     "candidate_words",
+    "compact_many",
     "dist_of",
     "edge_candidates",
     "edge_relax_words",
     "edge_sweep",
     "ell_relax_words",
     "ell_sweep",
+    "ell_sweep_many",
     "graph_is_canonical",
     "init_tent",
     "make_backend",

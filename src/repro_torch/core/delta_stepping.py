@@ -1,5 +1,7 @@
 """Single-device Δ-stepping SSSP engine of the PyTorch port (counterpart
-of ``repro.core.delta_stepping``, cold single-source path).
+of ``repro.core.delta_stepping``: the cold single-source, batched,
+point-to-point and bounded drivers, for the bucket loop and for the
+frontier-policy loop).
 
 The paper's shared-memory mechanisms map onto tensor dataflow as in the
 reference: the dense bucket array (C1) is a full scan of
@@ -14,6 +16,21 @@ iteration plus once per bucket (the classic loop's priming scan, or the
 fused loop's vacuous trailing step), the next bucket once per bucket,
 and the overflow flag once per solve — ``2 * buckets + inner_iters + 1``
 host synchronisations per solve, which ``_run_backend`` counts.
+
+Batched sources: on backends with ``supports_vmap`` (``edge``, ``ell``)
+``_run_many_vmapped`` carries ``[B, n]`` state with a per-lane bucket
+index and counters, and masks each lane's frontier with its active flag
+— a lane whose outer loop has ended, or whose light phase has drained
+while others still sweep, is frozen exactly where ``lax.while_loop``'s
+batching rule freezes it by select (DESIGN.md §3). Every lane is
+bitwise its single solve; all lanes' loop conditions come back in one
+transfer per loop step. The kernel strategies run a batch lane by lane
+(``_run_many_seq``), as the reference runs them under ``lax.map``.
+
+The frontier-policy loop (``_run_policy``, ρ- and radius-stepping,
+DESIGN.md §15) reads its round condition once per round, and radius's
+closure condition once per closure step; a stop predicate comes back in
+the same transfer as the round condition.
 """
 from __future__ import annotations
 
@@ -24,13 +41,13 @@ import torch
 
 from repro_torch.core import pack as packing
 from repro_torch.core.backends import RelaxBackend, dist_of, init_tent
+from repro_torch.core.policies import POLICIES
 from repro_torch.graphs.structures import COOGraph, INF32
 
 _INF = int(INF32)
 _IMAX = 2**31 - 1
 
 P2P_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
-POLICIES = ("delta", "rho", "radius")
 STRATEGIES = ("edge", "ell", "pallas", "fused", "sharded_edge",
               "sharded_ell", "sharded_fused")
 
@@ -42,8 +59,8 @@ class DeltaConfig:
     one config drives both packages. See ``repro.core.DeltaConfig`` for
     every field's meaning. In the port, ``interpret`` has no effect
     (there is no interpreter: CPU tensors run the kernels' twins), and
-    this slice solves ``strategy`` ∈ edge|ell|pallas|fused under
-    ``policy='delta'``."""
+    the port solves ``strategy`` ∈ edge|ell|pallas|fused under every
+    ``policy``."""
 
     delta: int = 10
     strategy: str = "edge"
@@ -97,10 +114,108 @@ class RunOut(NamedTuple):
     host_syncs: int
 
 
+class ManyOut(NamedTuple):
+    """What a batched run returns: tent words [B, n], the per-lane
+    counters as CPU tensors (int32[B], int32[B], bool[B]) and the host
+    synchronisations of the whole batch."""
+
+    tent: torch.Tensor
+    outer_iters: torch.Tensor
+    inner_iters: torch.Tensor
+    overflow: torch.Tensor
+    host_syncs: int
+
+
+def _lanes(outs, *, n: int, packed: bool, device) -> ManyOut:
+    """Stack per-lane ``RunOut``s into one ``ManyOut`` (an empty batch
+    gives ``[0, n]`` words, as the reference's ``lax.map`` does)."""
+    return ManyOut(
+        torch.stack([o.tent for o in outs]) if outs else
+        _init_tent_many(n, [], packed, device),
+        torch.tensor([o.outer_iters for o in outs], dtype=torch.int32),
+        torch.tensor([o.inner_iters for o in outs], dtype=torch.int32),
+        torch.tensor([o.overflow for o in outs], dtype=torch.bool),
+        sum(o.host_syncs for o in outs))
+
+
 def _run_one(backend: RelaxBackend, source: int, *, n: int, packed: bool,
              device) -> RunOut:
     """Single-source solve loop."""
     return _run_backend(backend, source, n=n, packed=packed, device=device)
+
+
+def _run_many_seq(backend: RelaxBackend, sources, *, n: int, packed: bool,
+                  device) -> ManyOut:
+    """Batched solve lane by lane (the reference's ``lax.map``), for the
+    kernel strategies: each lane is one ``_run_backend``."""
+    return _lanes([_run_backend(backend, int(s), n=n, packed=packed,
+                                device=device) for s in sources],
+                  n=n, packed=packed, device=device)
+
+
+def _init_tent_many(n: int, sources, packed: bool, device) -> torch.Tensor:
+    b = len(sources)
+    lanes = torch.arange(b, device=device)
+    src = torch.as_tensor([int(s) for s in sources], dtype=torch.int64,
+                          device=device)
+    if packed:
+        tent = torch.full((b, n), packing.INF_PACKED, dtype=torch.int64,
+                          device=device)
+        tent[lanes, src] = src & packing.MASK32       # (0 << 32) | source
+        return tent
+    tent = torch.full((b, n), _INF, dtype=torch.int32, device=device)
+    tent[lanes, src] = 0
+    return tent
+
+
+def _run_many_vmapped(backend: RelaxBackend, sources, *, n: int,
+                      packed: bool, device) -> ManyOut:
+    """Batched outer/inner loop over ``[B, n]`` lanes (the reference's
+    ``vmap`` of ``_run_backend``) on a backend with ``sweep_many`` /
+    ``scan_many``. ``act`` marks the lanes whose outer loop still runs,
+    ``go`` the lanes whose light phase still sweeps; every frontier is
+    masked by them, so a frozen lane's sweeps are sentinel no-ops and
+    its state, bucket index and counters stay as they are — the select
+    of ``lax.while_loop``'s batching rule. Host syncs: one per light
+    flag read and one per next-bucket read, for all lanes together,
+    plus one for the overflow flags."""
+    b = len(sources)
+    tent = _init_tent_many(n, sources, packed, device)
+    explored = torch.full((b, n), _INF, dtype=torch.int32, device=device)
+    over = torch.zeros(b, dtype=torch.bool, device=device)
+    i = torch.zeros(b, dtype=torch.int32, device=device)
+    outer = torch.zeros(b, dtype=torch.int32)
+    inner = torch.zeros(b, dtype=torch.int32)
+    act = torch.ones(b, dtype=torch.bool)
+    syncs = 0
+    while bool(act.any()):
+        act_d = act.to(device)
+        in_s = torch.zeros((b, n), dtype=torch.bool, device=device)
+        f, go_d, _ = backend.scan_many(dist_of(tent, packed), explored, i)
+        go_d = go_d & act_d
+        go = go_d.cpu()
+        syncs += 1
+        while bool(go.any()):
+            f = f & go_d[:, None]
+            explored = torch.where(f, dist_of(tent, packed), explored)
+            in_s = in_s | f                          # paper: move into S
+            tent, o = backend.sweep_many(tent, f, light=True, packed=packed)
+            over = over | o
+            inner += go.to(torch.int32)
+            f, go_new, _ = backend.scan_many(dist_of(tent, packed),
+                                             explored, i)
+            go_d = go_new & go_d                     # a drained lane stays so
+            go = go_d.cpu()
+            syncs += 1
+        # heavy pass from S; a frozen lane's S is empty
+        tent, o = backend.sweep_many(tent, in_s, light=False, packed=packed)
+        over = over | o
+        _, _, nxt = backend.scan_many(dist_of(tent, packed), explored, i)
+        i = torch.where(act_d, nxt, i)
+        outer += act.to(torch.int32)
+        act = act & (i.cpu() < _IMAX)
+        syncs += 1
+    return ManyOut(tent, outer, inner, over.cpu(), syncs + 1)
 
 
 def _run_one_p2p(backend: RelaxBackend, source: int, target: int, *, n: int,
@@ -231,6 +346,111 @@ def _run_backend(backend: RelaxBackend, source: int, *, n: int, packed: bool,
 
 
 # ---------------------------------------------------------------------------
+# the frontier-policy loop (DESIGN.md §15) — rho / radius stepping over
+# the same relaxation backends
+# ---------------------------------------------------------------------------
+
+def _pending_min(d, explored):
+    """Minimum tentative distance over *pending* vertices (``tent <
+    explored``): every future tent value of a policy loop is >= it."""
+    return torch.where(d < explored, d, _INF).min()
+
+
+def _run_policy(backend: RelaxBackend, policy, source: int, *, n: int,
+                packed: bool, device, stop=None) -> RunOut:
+    """Round loop generic over a ``core.policies`` policy, cold start —
+    the reference's ``_run_policy`` with no ``init``. Each round: the
+    policy threshold θ from the pending state, then a step of the
+    value-closed frontier ``pending & (tent <= θ)``: mark it explored and
+    sweep its full edge set (light phase, then heavy). A closure policy
+    (radius) re-steps under the same θ until nothing pending is left at
+    or below it. ``outer`` counts rounds, ``inner`` steps.
+
+    ``stop`` is an optional ``(tent, explored) -> device bool`` checked
+    before each round, read in the same transfer as the round condition.
+    Host syncs: one per round condition, one per closure condition, one
+    for the overflow flag."""
+    tent = init_tent(n, source, packed, device)
+    explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
+    over = torch.zeros((), dtype=torch.bool, device=device)
+    zero_i = 0  # dummy bucket id: only the grid stencil reads it, and
+    # grid plans refuse non-delta policies
+    outer, inner, syncs = 0, 0, 0
+
+    def step(tent, explored, theta, over):
+        d = dist_of(tent, packed)
+        f = (d < explored) & (d <= theta)
+        explored = torch.where(f, d, explored)
+        tent, o1 = backend.sweep(tent, f, zero_i, light=True, packed=packed)
+        tent, o2 = backend.sweep(tent, f, zero_i, light=False, packed=packed)
+        return tent, explored, _or(_or(over, o1), o2)
+
+    while True:
+        d = dist_of(tent, packed)
+        go, halt = _read((d < explored).any(),
+                         None if stop is None else stop(tent, explored))
+        syncs += 1
+        if not go or halt:
+            break
+        theta = policy.threshold(d, explored)
+        if policy.closure:
+            while True:
+                d = dist_of(tent, packed)
+                go = bool(((d < explored) & (d <= theta)).any())
+                syncs += 1
+                if not go:
+                    break
+                tent, explored, over = step(tent, explored, theta, over)
+                inner += 1
+        else:
+            tent, explored, over = step(tent, explored, theta, over)
+            inner += 1
+        outer += 1
+    return RunOut(tent, outer, inner, bool(over), syncs + 1)
+
+
+def _run_policy_one(backend: RelaxBackend, source: int, *, policy, n: int,
+                    packed: bool, device) -> RunOut:
+    """Single-source policy solve."""
+    return _run_policy(backend, policy, source, n=n, packed=packed,
+                       device=device)
+
+
+def _run_policy_many_seq(backend: RelaxBackend, sources, *, policy, n: int,
+                         packed: bool, device) -> ManyOut:
+    """Batched policy solve, lane by lane on every strategy (a batched
+    ``[B, n]`` policy loop is later work)."""
+    return _lanes([_run_policy(backend, policy, int(s), n=n, packed=packed,
+                               device=device) for s in sources],
+                  n=n, packed=packed, device=device)
+
+
+def _run_policy_p2p(backend: RelaxBackend, source: int, target: int, *,
+                    policy, n: int, packed: bool, device) -> RunOut:
+    """Point-to-point early exit under a policy loop: stop once
+    ``tent[target] <= min pending tent`` — sound for every policy, since
+    each round sweeps the full edge set of what it relaxes."""
+    def stop(tent, explored):
+        d = dist_of(tent, packed)
+        return (d[target] < _INF) & (d[target] <= _pending_min(d, explored))
+
+    return _run_policy(backend, policy, source, n=n, packed=packed,
+                       device=device, stop=stop)
+
+
+def _run_policy_bounded(backend: RelaxBackend, source: int, radius: int, *,
+                        policy, n: int, packed: bool, device) -> RunOut:
+    """Bounded-radius policy solve: stop once the pending minimum
+    exceeds ``radius``; tent values beyond are bounds the caller
+    filters."""
+    def stop(tent, explored):
+        return _pending_min(dist_of(tent, packed), explored) > radius
+
+    return _run_policy(backend, policy, source, n=n, packed=packed,
+                       device=device, stop=stop)
+
+
+# ---------------------------------------------------------------------------
 # predecessor recovery (two-pass argmin mode)
 # ---------------------------------------------------------------------------
 
@@ -267,11 +487,61 @@ def _finish_pred(tent, coo: COOGraph, source: int, cfg: DeltaConfig):
     return dist, pred
 
 
+def _finish_pred_many(tent, coo: COOGraph, sources, cfg: DeltaConfig):
+    """Batched ``_finish_pred`` (leading lane axis on ``tent``): argmin
+    recovery lane by lane, or the packed words unpacked with each lane's
+    source set to -1."""
+    packed = cfg.pred_mode == "packed"
+    dist = dist_of(tent, packed)
+    if cfg.pred_mode == "none":
+        pred = torch.full(dist.shape, -1, dtype=torch.int32,
+                          device=dist.device)
+    elif packed:
+        pred = torch.where(dist < _INF, packing.unpack_pred(tent), -1)
+        pred = pred.to(torch.int32)
+        lanes = torch.arange(len(sources), device=dist.device)
+        pred[lanes, torch.as_tensor([int(s) for s in sources],
+                                    dtype=torch.int64,
+                                    device=dist.device)] = -1
+    else:
+        pred = torch.empty_like(dist)
+        for b, s in enumerate(sources):
+            pred[b] = pred_argmin(dist[b], coo.src, coo.dst, coo.w, int(s),
+                                  n=coo.n_nodes)
+    return dist, pred
+
+
+# ---------------------------------------------------------------------------
+# the reference's deprecated entry points
+# ---------------------------------------------------------------------------
+
+def _deprecated_shim(name: str):
+    raise NotImplementedError(
+        f"{name} is a deprecated shim in the reference and is not ported "
+        "(ROADMAP Queue 1 item 13); use repro_torch.api.Engine(graph, "
+        "config).plan().solve(query)")
+
+
+class DeltaSteppingSolver:
+    """The reference's deprecated solver shim: not ported; raises."""
+
+    def __init__(self, *args, **kwargs):
+        _deprecated_shim("DeltaSteppingSolver")
+
+
+def delta_stepping(*args, **kwargs):
+    """The reference's deprecated one-shot solve: not ported; raises."""
+    _deprecated_shim("delta_stepping")
+
+
 __all__ = [
     "DeltaConfig",
+    "DeltaSteppingSolver",
+    "ManyOut",
     "P2P_MODES",
     "POLICIES",
     "RunOut",
     "SSSPResult",
+    "delta_stepping",
     "pred_argmin",
 ]

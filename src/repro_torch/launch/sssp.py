@@ -6,6 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.sssp --graph gamemap \\
       --nodes 250000 --strategy pallas --target 249999 --verify
 
+  PYTHONPATH=src python -m repro_torch.launch.sssp --sources 4 \\
+      --policy rho --rho 512 --strategy ell --verify
+
 Flag names follow ``repro.launch.sssp``. The solve runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 first solve builds the CUDA kernels and warms up; the second is timed.
@@ -13,8 +16,12 @@ first solve builds the CUDA kernels and warms up; the second is timed.
 obstacle fraction 0.1 at Δ = 13; ``--strategy pallas`` solves it with
 the grid stencil. ``--target T`` answers one early-exit
 ``PointToPoint`` query from source 0 instead of the full solve.
-``--verify`` checks the distances against the heap-Dijkstra oracle and
-exits non-zero on a mismatch.
+``--sources K`` solves sources 0..K-1 as one ``MultiSource`` query
+(``edge`` and ``ell``: one batched loop; the kernel strategies: lane by
+lane). ``--policy rho|radius`` (with ``--rho`` / ``--radius-k``) runs
+the frontier-policy loop instead of the bucket loop. ``--verify``
+checks the distances (lane 0 of a batch) against the heap-Dijkstra
+oracle and exits non-zero on a mismatch.
 """
 from __future__ import annotations
 
@@ -34,6 +41,19 @@ def main(argv=None):
                     choices=["edge", "ell", "pallas", "fused"])
     ap.add_argument("--pred-mode", default="argmin",
                     choices=["none", "argmin", "packed"])
+    ap.add_argument("--policy", default="delta",
+                    choices=["delta", "rho", "radius"],
+                    help="frontier-selection policy: the paper's bucket "
+                         "loop, rho-stepping or radius-stepping over the "
+                         "same backend")
+    ap.add_argument("--rho", type=int, default=None,
+                    help="--policy rho: batch size rho (default: "
+                         "max(32, |V|/8))")
+    ap.add_argument("--radius-k", type=int, default=4,
+                    help="--policy radius: r(v) = k-th smallest outgoing "
+                         "edge weight")
+    ap.add_argument("--sources", type=int, default=1,
+                    help="solve sources 0..K-1 as one MultiSource query")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain twins)")
@@ -46,7 +66,8 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.api import Engine, PointToPoint, SingleSource
+    from repro_torch.api import (Engine, MultiSource, PointToPoint,
+                                 SingleSource)
     from repro_torch.core import DeltaConfig, dijkstra
     from repro_torch.graphs import grid_map, rmat, watts_strogatz
 
@@ -65,44 +86,55 @@ def main(argv=None):
           f"({time.perf_counter() - t0:.1f}s to generate)")
 
     cfg = DeltaConfig(delta=args.delta, strategy=args.strategy,
-                      pred_mode=args.pred_mode)
+                      pred_mode=args.pred_mode, policy=args.policy,
+                      rho=args.rho, radius_k=args.radius_k)
+    sources = list(range(args.sources))
     engine = Engine(g, cfg, free_mask=free, device=args.device)
-    plan = engine.plan()
+    plan = engine.plan(sources=sources)
     dev = engine.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
+    if cfg.policy != "delta":
+        print(f"[sssp] frontier policy: {cfg.policy}")
     if args.target is not None:
-        q = PointToPoint(0, args.target)
+        q = PointToPoint(sources[0], args.target)
         plan.solve(q)                           # kernel build + warm-up
         t0 = time.perf_counter()
         r = plan.solve(q)
         dt = time.perf_counter() - t0
         hops = 0 if r.path is None else len(r.path) - 1
-        print(f"[sssp] p2p 0->{args.target} on {name}: dist={r.distance} "
+        print(f"[sssp] p2p {sources[0]}->{args.target} on {name}: "
+              f"dist={r.distance} "
               f"hops={hops} buckets={r.telemetry.buckets} (early_exit), "
               f"{dt * 1e3:.1f} ms, host syncs={plan.host_syncs}")
         if args.verify:
-            ref, _ = dijkstra(g, 0)
+            ref, _ = dijkstra(g, sources[0])
             ok = int(ref[args.target]) == r.distance
             print(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit(1)
         return
-    plan.solve(SingleSource(0))                 # kernel build + warm-up
+    if len(sources) > 1:
+        q = MultiSource(sources)                # one batched query
+    else:
+        q = SingleSource(sources[0])
+    plan.solve(q)                               # kernel build + warm-up
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    r = plan.solve(SingleSource(0))
-    dist = r.dist.cpu().numpy()
+    r = plan.solve(q)
+    dist = r.dist.cpu().numpy().reshape(len(sources), -1)
     dt = time.perf_counter() - t0
-    print(f"[sssp] Δ={cfg.delta} ({cfg.strategy}, {cfg.pred_mode}) on "
-          f"{name}: {dt * 1e3:.1f} ms/source, "
-          f"buckets={r.telemetry.buckets}, "
-          f"light sweeps={r.telemetry.inner_iters}, "
+    tel = r.telemetry
+    batch = f", batched x{len(sources)}" if len(sources) > 1 else ""
+    print(f"[sssp] Δ={cfg.delta} ({cfg.strategy}, {cfg.pred_mode}{batch}) "
+          f"on {name}: {dt * 1e3 / len(sources):.1f} ms/source, "
+          f"buckets={int(torch.as_tensor(tel.buckets).max())}, "
+          f"light sweeps={int(torch.as_tensor(tel.inner_iters).max())}, "
           f"host syncs={plan.host_syncs}")
     if args.verify:
-        ref, _ = dijkstra(g, 0)
-        ok = np.array_equal(dist.astype(np.int64), ref)
+        ref, _ = dijkstra(g, sources[0])
+        ok = np.array_equal(dist[0].astype(np.int64), ref)
         print(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(1)

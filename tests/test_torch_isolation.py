@@ -5,10 +5,10 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (the game-map path and the point-to-point and
-  bounded-radius queries are ported; the batched queries, the landmark
-  modes and dynamic updates are not); the launcher runs end to end on
-  the CPU with --verify.
+  ROADMAP item (tuning, the landmark modes, dynamic updates, the
+  sharded strategies and the deprecated solver shims; the batched
+  queries and the frontier policies are ported); the launcher runs end
+  to end on the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -25,7 +25,7 @@ from repro_torch.api import (
     SingleSource,
     UpdateBatch,
 )
-from repro_torch.core import DeltaConfig
+from repro_torch.core import DeltaConfig, DeltaSteppingSolver, delta_stepping
 from repro_torch.graphs import watts_strogatz
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,6 +49,7 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/kernels/frontier_relax/ops.py",
                  "src/repro_torch/kernels/grid_relax/ops.py",
                  "src/repro_torch/core/grid.py",
+                 "src/repro_torch/core/policies.py",
                  "src/repro_torch/api/engine.py", "chip_smoke.py"):
         assert must in names
 
@@ -81,19 +82,28 @@ def test_unported_parts_raise_with_roadmap_item():
         Engine(g, cfg, tuning="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(g, DeltaConfig(strategy="sharded_edge"), device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Engine(g, DeltaConfig(strategy="pallas"), free_mask=np.ones((4, 5)),
-               device="cpu").plan().solve(ManyToMany([0], [3]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(g, DeltaConfig(policy="rho"), device="cpu")
-    plan = Engine(g, cfg, device="cpu").plan()
-    for q, item in ((MultiSource([0, 1]), "item 4"),
-                    (PointToPoint(0, 3, mode="alt"), "item 10"),
-                    (UpdateBatch([0], [3]), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            plan.solve(q)
-    with pytest.raises(ValueError, match="out of range"):
-        plan.solve(SingleSource(20))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        DeltaSteppingSolver(g, cfg)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        delta_stepping(g, 0, cfg)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Engine(g, cfg, device="cpu").plan().solve(
+            PointToPoint(0, 3, mode="alt"))
+    for policy in ("delta", "rho", "radius"):
+        plan = Engine(g, DeltaConfig(delta=5, policy=policy),
+                      device="cpu").plan()
+        with pytest.raises(NotImplementedError, match="item 9"):
+            plan.solve(UpdateBatch([0], [3]))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            plan.update([0], [3])
+        # ported: the batched queries, under every policy
+        plan.solve(MultiSource([0, 1]))
+        plan.solve(ManyToMany([0], [3]))
+        with pytest.raises(ValueError, match="out of range"):
+            plan.solve(SingleSource(20))
+    grid = Engine(g, DeltaConfig(strategy="pallas"), free_mask=np.ones((4, 5)),
+                  device="cpu").plan()
+    assert grid.solve(ManyToMany([0], [3])).matrix.shape == (1, 1)
 
 
 def test_delta_config_validates_like_reference():

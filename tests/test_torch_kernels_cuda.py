@@ -220,3 +220,64 @@ def test_dispatchers_launch_kernels_on_cuda_tensors(cuda, width):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         _equal(out, twin())
+
+
+def _answer(plan, q):
+    """A query's answer on the host: arrays and counters as lists."""
+    r = plan.solve(q)
+    t = r.telemetry
+    return ([x.cpu().tolist() for x in (r.dist, r.pred)],
+            [torch.as_tensor(x).tolist()
+             for x in (t.buckets, t.inner_iters, t.overflow)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["delta", "rho", "radius"])
+@pytest.mark.parametrize("strategy", ["edge", "ell", "pallas", "fused"])
+def test_batched_and_policy_paths_on_cuda_equal_cpu(cuda, strategy, policy):
+    """``MultiSource`` (one ``[B, n]`` loop on edge/ell, lane by lane on
+    the kernel strategies) and the frontier-policy loop give on the card
+    what they give on the CPU, and the kernel strategies launch their
+    kernels: ``bucket_scan`` + ``ell_relax`` on ``pallas``,
+    ``frontier_relax`` + ``bucket_scan`` on ``fused`` (delta), two
+    ``ell_relax`` launches per policy step on ``pallas``."""
+    from repro_torch.api import Engine, MultiSource, SingleSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import watts_strogatz
+    g = watts_strogatz(3000, 10, 0.05, seed=4)
+    cfg = DeltaConfig(delta=10, strategy=strategy, policy=policy, rho=64)
+    sources = [0, 1234, 0, 2999]
+    counters = (bucket_scan_cuda, ell_relax_cuda, frontier_relax_cuda)
+    before = [fn.launches for fn in counters]
+    gpu = Engine(g, cfg, device=cuda).plan()
+    multi = _answer(gpu, MultiSource(sources))
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    cpu = Engine(g, cfg, device="cpu").plan()
+    assert multi == _answer(cpu, MultiSource(sources))
+    assert _answer(gpu, SingleSource(1234)) == _answer(cpu, SingleSource(1234))
+    buckets, inner = sum(multi[1][0]), sum(multi[1][1])
+    if strategy == "pallas" and policy == "delta":
+        assert launched == [2 * buckets + inner, buckets + inner, 0]
+    elif strategy == "pallas":
+        assert launched == [0, 2 * inner, 0]
+    elif strategy == "fused" and policy == "delta":
+        assert launched == [buckets, 0, buckets + inner]
+    else:       # a policy sweep on fused is the plain compact-and-expand
+        assert launched == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_grid_multisource_on_cuda_equals_cpu(cuda):
+    from repro_torch.api import Engine, MultiSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import grid_map
+    g, free = grid_map(60, 70, 0.1, seed=3)
+    sources = np.flatnonzero(free.ravel())[[0, 500, 0]].tolist()
+    cfg = DeltaConfig(delta=13, strategy="pallas")
+    before = grid_relax_cuda.launches
+    gpu = _answer(Engine(g, cfg, free_mask=free, device=cuda).plan(),
+                  MultiSource(sources))
+    assert grid_relax_cuda.launches - before == sum(gpu[1][0]) + sum(
+        gpu[1][1])
+    assert gpu == _answer(Engine(g, cfg, free_mask=free, device="cpu").plan(),
+                          MultiSource(sources))
