@@ -64,11 +64,12 @@
    the profiled solve's device time of the kernel over its launches;
    and its bound (the bytes this input needs ÷ 3.35 TB/s, or its
    integer operations ÷ 16.7 T/s, the int32 rate, if larger),
-   at each path's shapes (``bucket_scan`` runs on both paths: n = 1 M
-   and n = 9 M). ``launches`` in the kernels line sums both paths'
-   main runs; ``by_path`` gives each path's launches and numbers, and
-   the entry's ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are
-   their means weighted by those launches.
+   at each path's shapes (``bucket_scan`` runs on the small-world and
+   the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
+   kernels line sums every path's counted runs (phases 3, 5 and 8);
+   ``by_path`` gives each path's launches and numbers, and the entry's
+   ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
+   weighted by those launches, so they move when a path is added.
 
 8. Batched queries and frontier policies, on the graphs above (run
    after phase 4; the game-map part at the end of phase 5). On the
@@ -82,22 +83,31 @@
    ``edge``'s), and lane 3 equal to scipy's Dijkstra. ``ManyToMany`` (16
    sources, 1000 targets, tile 8, ``edge``) equal to the ``MultiSource``
    rows. ``frontier_cap=4096`` on ``ell``, ``pallas`` and ``fused``:
-   without fallback the solve reports overflow; with ``fallback=True``
-   it answers as the uncapped plan of phase 3, with
-   ``telemetry.fallback`` and ``explain()["fallback_taken"]`` set.
-   ``rho`` (default ρ) and ``radius`` (k = 4) on ``edge`` and ``pallas``:
+   without fallback the solve reports overflow, launches its kernels by
+   its own counters' equations and answers bitwise as the same plan on
+   the CPU; with ``fallback=True`` it answers as the uncapped plan of
+   phase 3, with ``telemetry.fallback`` and
+   ``explain()["fallback_taken"]`` set, and launches what the capped
+   solve and the full-width twin's solve launch together. ``rho``
+   (default ρ) and ``radius`` (k = 4) on ``edge`` and ``pallas``:
    ``dist`` and argmin ``pred`` equal to the delta answer, two
    ``ell_relax`` launches per policy step on ``pallas`` and no bucket
    scan; ``PointToPoint`` and ``BoundedRadius`` under ``rho``. On the
    game map: ``MultiSource`` of 2 sources on the grid plan, each lane
    equal to its single solve, launches equal to the lanes' equations.
-   Wall times (median of 3; one timed run for the lane-by-lane
-   batches, ``ell``'s batch, ``ManyToMany`` and the fallback), host
-   syncs and launches per path; each path's counters are
-   set to 0 just before it and read just after, and its launches join
-   ``by_path`` in the kernels line (``*_multisource``, ``*_policy``;
-   ``ell_relax`` is also timed on the largest input of the policy
-   path).
+   Wall times (median of 3; one timed run, apart from the counted one,
+   for the lane-by-lane batches, ``ell``'s batch, ``ManyToMany`` and
+   the fallback), host syncs and launches per path. The counters are
+   set to 0 just before each counted run and read just after; each
+   path's launches join ``by_path`` in the kernels line
+   (``smallworld_multisource``, ``smallworld_policy``,
+   ``smallworld_fallback`` for the capped solves,
+   ``smallworld_fallback_twin`` for the full-width re-solves,
+   ``gamemap_multisource``), and each kernel is timed and held against
+   its twin on every path at that path's own recorded input with the
+   largest frontier (lane 1 of a batch; the policy solves; the capped
+   solves, ``fidx`` of 4096 rows; a re-solve is phase 3's solve, so
+   its inputs are phase 2's).
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -140,6 +150,7 @@ BATCH_SOURCES = (0, 131_071, 262_147, 393_209, 524_287, 655_357, 786_431,
 M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
                                720_887, 851_957, 999_999)
 M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
+SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 
 
 def check(cond, what: str) -> None:
@@ -296,10 +307,12 @@ def check_path(path, source, target, distance, keyed, n):
 def game_map_path(torch, np, cuda, counters):
     """Phase 5: the game-map path at full width (``grid_map(3000, 3000,
     0.1)``, Δ = 13, the first free cell as source) through
-    ``Engine(..., free_mask=free)`` on CUDA. Returns the path's launch
-    counts, its per-solve counts, and the recorded ``grid_relax`` and
-    ``bucket_scan`` inputs with the largest frontier, to time the
-    kernels on."""
+    ``Engine(..., free_mask=free)`` on CUDA, and phase 8's ``MultiSource``
+    on it. Returns the path's launch counts, its per-solve counts, the
+    recorded ``grid_relax`` and ``bucket_scan`` inputs with the largest
+    frontier (of the single solve, and of the batch's lane 1) to time
+    the kernels on, each kernel's device time in the solve, and the
+    batch's launch counts."""
     import repro_torch.core.backends as backends
     from repro_torch.api import (BoundedRadius, Engine, MultiSource,
                                  PointToPoint, SingleSource)
@@ -543,12 +556,15 @@ def game_map_path(torch, np, cuda, counters):
     pair = [src, int(free_ids[free_ids.shape[0] // 2])]
     second = plan.solve(SingleSource(pair[1]))
     second_syncs = plan.host_syncs
+    # the counted run also keeps each kernel's largest input of lane 1
+    lane1 = Largest(backends, frontier_sizes(n, ("bucket_scan",
+                                                 "grid_relax")),
+                    lane=pair[1])
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    m = plan.solve(MultiSource(pair))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with lane1:
+        m = plan.solve(MultiSource(pair))
+        torch.cuda.synchronize()
     launches_multi = {k: fn.launches for k, fn in counters.items()}
     same_lanes(torch, m, [r, second], "gamemap MultiSource")
     mt = m.telemetry
@@ -560,11 +576,16 @@ def game_map_path(torch, np, cuda, counters):
           "inner_iters")
     check(plan.host_syncs == tel.buckets * 2 + tel.inner_iters + 1
           + second_syncs, "gamemap MultiSource: host syncs != the lanes'")
+    check(set(lane1.best) == {"bucket_scan", "grid_relax"},
+          "gamemap MultiSource: no lane-1 input recorded")
+    _, walls = walls_ms(torch, lambda: plan.solve(MultiSource(pair)), 1)
     log(f"[batch] gamemap MultiSource {pair}: lanes == SingleSource, "
         f"buckets={mt.buckets.tolist()} inner_iters={mt.inner_iters.tolist()}"
         f" host_syncs={plan.host_syncs} launches {json.dumps(launches_multi)}"
-        f"; one timed run {wall * 1e3:.1f} ms = {wall * 1e3 / 2:.1f} "
-        "ms/source")
+        f"; one timed run {walls[0]:.1f} ms = {walls[0] / 2:.1f} ms/source; "
+        f"lane 1's largest frontiers: bucket_scan "
+        f"{lane1.best['bucket_scan'][2]}, grid_relax "
+        f"{lane1.best['grid_relax'][2]} cells")
 
     # -- 5h. where a grid solve's device time goes --------------------------
     kern, wall = profiled(torch, lambda: plan.solve(SingleSource(src)))
@@ -583,7 +604,12 @@ def game_map_path(torch, np, cuda, counters):
             f"{launches[name]} launches in the solve = "
             + (f"{in_solve[name]:.5f} ms/launch" if total > 0 else
                "not measured (the profiler saw no device time)"))
-    return launches, per_solve, main_case, scan_case, in_solve, launches_multi
+    t, f, i, kw = main_case
+    records = {"gamemap": {"grid_relax": ((t, f, i), kw,
+                                          frontier_size(t, i)),
+                           "bucket_scan": scan_case[:2] + scan_case[3:]},
+               "gamemap_multisource": lane1.best}
+    return launches, per_solve, records, in_solve, launches_multi
 
 
 def same_lanes(torch, multi, singles, tag: str) -> None:
@@ -598,6 +624,67 @@ def same_lanes(torch, multi, singles, tag: str) -> None:
         check((int(t.buckets[b]), int(t.inner_iters[b]), bool(t.overflow[b]))
               == (one.telemetry.buckets, one.telemetry.inner_iters,
                   one.telemetry.overflow), f"{tag} lane {b}: counters differ")
+
+
+class Largest:
+    """While active, wraps the kernel dispatchers of ``core.backends``
+    named in ``sizes`` and keeps, for each, the inputs of the call with
+    the largest ``sizes[name](args, kw, out)``: among the calls whose
+    distances (``args[DIST[name]]``) are 0 at vertex ``lane`` — the calls
+    of the lane that solves from ``lane`` — or among all calls when
+    ``lane`` is None. The state arguments are cloned. Sizing and cloning
+    are tensor ops, not kernels, so the launch counts of the run it
+    watches stay the kernels' own."""
+
+    DIST = {"bucket_scan": 0, "ell_relax": 1, "frontier_relax": 0,
+            "grid_relax": 0}
+    STATE = {"bucket_scan": (0, 1), "ell_relax": (0, 1),
+             "frontier_relax": (0, 1), "grid_relax": (0,)}
+
+    def __init__(self, backends, sizes, lane=None):
+        self.backends, self.sizes, self.lane = backends, sizes, lane
+        self.best = {}
+
+    def __enter__(self):
+        self.real = {name: getattr(self.backends, name) for name in self.sizes}
+        for name in self.sizes:
+            setattr(self.backends, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.backends, name, fn)
+
+    def _wrap(self, name):
+        real, dist, state = self.real[name], self.DIST[name], self.STATE[name]
+
+        def wrapped(*args, **kw):
+            out = real(*args, **kw)
+            if (self.lane is None
+                    or int(args[dist].reshape(-1)[self.lane]) == 0):
+                size = self.sizes[name](args, kw, out)
+                if name not in self.best or size > self.best[name][2]:
+                    kept = tuple(a.clone() if k in state else a
+                                 for k, a in enumerate(args))
+                    self.best[name] = (kept, kw, size)
+            return out
+        return wrapped
+
+
+def frontier_sizes(n: int, names):
+    """For the kernels ``names``, the frontier size of a call on an
+    ``n``-vertex graph: the rows it relaxes or the vertices of its bucket
+    (``grid_relax``: light sweeps only, the phase its timing has always
+    used)."""
+    def grid(args, kw, out):
+        t, _, i = args[:3]
+        return (int(((t < INF) & (t // kw["delta"] == i)).sum())
+                if kw["light"] else -1)
+    sizes = {"bucket_scan": lambda a, kw, o: int(o[0].sum()),
+             "ell_relax": lambda a, kw, o: int((a[0] < n).sum()),
+             "frontier_relax": lambda a, kw, o: int(o[3]),
+             "grid_relax": grid}
+    return {name: sizes[name] for name in names}
 
 
 def walls_ms(torch, fn, reps: int):
@@ -621,9 +708,11 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                           counters):
     """Phase 8 on the 1 M-vertex small-world graph: batched queries, the
     overflow fallback and the frontier policies (see the module note).
-    Returns the launches of the ``pallas``/``fused`` ``MultiSource`` path
-    and of the ``pallas`` policy path, and the largest ``ell_relax``
-    input recorded on the policy path."""
+    Returns the launches of the ``pallas``/``fused`` ``MultiSource``
+    path, of the ``pallas`` policy path, of the capped solves (with and
+    without the fallback) and of the full-width twins' re-solves, and per
+    path each kernel's recorded input with the largest frontier (lane 1
+    of the batch; the policy solves; the capped solves)."""
     import repro_torch.core.backends as backends
     from repro_torch.api import (BoundedRadius, Engine, ManyToMany,
                                  MultiSource, PointToPoint, SingleSource)
@@ -682,13 +771,20 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         "dijkstra")
 
     # -- 8c. MultiSource on pallas and fused: lane by lane ----------------
+    # the counted run also keeps each kernel's largest input of lane 1
     pair = [0, BATCH_SOURCES[4]]
-    zero()
+    lane1 = Largest(backends, frontier_sizes(g.n_nodes, SW_KERNELS),
+                    lane=pair[1])
+    launches_multi = dict.fromkeys(counters, 0)
     for st in ("pallas", "fused"):
         plan = plans[(st, "argmin")]
-        before = read()
-        res, walls = walls_ms(torch, lambda: plan.solve(MultiSource(pair)), 1)
-        got = {k: v - before[k] for k, v in read().items()}
+        zero()
+        with lane1:
+            res = plan.solve(MultiSource(pair))
+            torch.cuda.synchronize()
+        got = read()
+        for k, v in got.items():
+            launches_multi[k] += v
         same_lanes(torch, res, [single[s] for s in pair], f"{st} MultiSource")
         t = res.telemetry
         b, inner = int(t.buckets.sum()), int(t.inner_iters.sum())
@@ -702,11 +798,15 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                   "fused MultiSource: launches off the lanes' equations")
         check(plan.host_syncs == sum(single_syncs[s] for s in pair),
               f"{st} MultiSource: host syncs != the lanes'")
+        _, walls = walls_ms(torch, lambda: plan.solve(MultiSource(pair)), 1)
         log(f"[batch] {st} MultiSource {pair} (lane by lane): lanes == "
             f"SingleSource, host_syncs={plan.host_syncs}, launches "
             f"{json.dumps(got)}; one timed run {walls[0]:.1f} ms = "
             f"{walls[0] / len(pair):.1f} ms/source")
-    launches_multi = read()
+    check(set(lane1.best) == set(SW_KERNELS),
+          "MultiSource: no lane-1 input recorded for a kernel")
+    log("[batch] lane 1's largest frontiers: " + ", ".join(
+        f"{k} {v[2]}" for k, v in lane1.best.items()))
 
     # -- 8d. ManyToMany against the MultiSource rows ----------------------
     targets = np.random.default_rng(2).choice(g.n_nodes, size=M2M_TARGETS,
@@ -729,15 +829,59 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         f"inner_iters={m2m.telemetry.inner_iters}")
 
     # -- 8e. a capped frontier, with and without the fallback -------------
+    # every capped and every fallback solve is counted on its own and held
+    # to its launch equations (the fallback's: the capped solve's plus the
+    # full-width twin's); the capped solves keep each kernel's largest
+    # input (fidx of CAP rows), and each capped answer on the card must
+    # equal the same plan's on the CPU
+    def equations(st, tel):
+        b, inner = tel.buckets, tel.inner_iters
+        return {"bucket_scan": {"pallas": 2 * b + inner,
+                                "fused": b}.get(st, 0),
+                "ell_relax": b + inner if st == "pallas" else 0,
+                "frontier_relax": b + inner if st == "fused" else 0,
+                "grid_relax": 0}
+
+    capped = Largest(backends, frontier_sizes(g.n_nodes, SW_KERNELS))
+    launches_fb = dict.fromkeys(counters, 0)      # the capped solves
+    launches_twin = dict.fromkeys(counters, 0)    # the twins' re-solves
     for st in ("ell", "pallas", "fused"):
         cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin",
                           frontier_cap=CAP)
-        raw = Engine(g, cfg, device=cuda).plan().solve(SingleSource(0))
-        check(raw.telemetry.overflow and not raw.telemetry.fallback,
+        plan = Engine(g, cfg, device=cuda).plan()
+        zero()
+        with capped:
+            raw = plan.solve(SingleSource(0))
+            torch.cuda.synchronize()
+        got_raw = read()
+        rt = raw.telemetry
+        check(rt.overflow and not rt.fallback,
               f"{st} cap {CAP}: no overflow reported")
+        check(got_raw == equations(st, rt),
+              f"{st} cap {CAP}: launches {got_raw} off the capped solve's "
+              "equations")
+        t0 = time.perf_counter()
+        host = Engine(g, cfg, device="cpu").plan().solve(SingleSource(0))
+        cpu_s = time.perf_counter() - t0
+        ht = host.telemetry
+        check(torch.equal(raw.dist.cpu(), host.dist)
+              and torch.equal(raw.pred.cpu(), host.pred)
+              and (rt.buckets, rt.inner_iters, rt.overflow)
+              == (ht.buckets, ht.inner_iters, ht.overflow),
+              f"{st} cap {CAP}: the capped answer on the card differs from "
+              "the CPU's")
         plan = Engine(g, cfg, device=cuda).plan(fallback=True)
-        res, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
         full = results[(st, "argmin")][0]
+        zero()
+        res, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
+        got = read()
+        want = equations(st, full.telemetry)
+        check(got == {k: v + want[k] for k, v in got_raw.items()},
+              f"{st} cap {CAP}: fallback launches {got} != the capped "
+              "solve's + the full-width twin's")
+        for k in counters:
+            launches_fb[k] += 2 * got_raw[k]
+            launches_twin[k] += got[k] - got_raw[k]
         check(res.telemetry.fallback and plan.explain()["fallback_taken"],
               f"{st} cap {CAP}: the fallback did not answer")
         check(torch.equal(res.dist, full.dist)
@@ -748,21 +892,19 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                                                False),
               f"{st} cap {CAP}: the fallback answer differs from phase 3's")
         log(f"[batch] {st} frontier_cap={CAP}: overflow reported without "
-            f"fallback (buckets={raw.telemetry.buckets}); with fallback "
-            f"== the uncapped plan, telemetry.fallback set, "
-            f"host_syncs={plan.host_syncs} (capped + full), "
-            f"{walls[0]:.1f} ms")
+            f"fallback (buckets={rt.buckets} inner_iters={rt.inner_iters}, "
+            f"launches {json.dumps(got_raw)}; == the CPU's capped answer, "
+            f"{cpu_s:.1f} s there); with fallback == the uncapped plan, "
+            f"telemetry.fallback set, host_syncs={plan.host_syncs} (capped "
+            f"+ full), launches {json.dumps(got)}, {walls[0]:.1f} ms")
+    check(set(capped.best) == set(SW_KERNELS),
+          "capped solves: no input recorded for a kernel")
+    log("[batch] capped solves' largest frontiers: " + ", ".join(
+        f"{k} {v[2]}" for k, v in capped.best.items()))
 
     # -- 8f. frontier policies on edge and pallas -------------------------
     base = results[("edge", "argmin")][0]
-    rec, real_er = [None], backends.ell_relax
-
-    def recorder(fidx, dist, w_ell):
-        m = int((fidx < g.n_nodes).sum())
-        if rec[0] is None or m > rec[0][1]:
-            rec[0] = ((fidx.clone(), dist.clone(), w_ell), m)
-        return real_er(fidx, dist, w_ell)
-
+    policy_rec = Largest(backends, frontier_sizes(g.n_nodes, ("ell_relax",)))
     launches_policy = dict.fromkeys(counters, 0)
     rho_edge = None
     for policy, extra in (("rho", {}), ("radius", dict(radius_k=RADIUS_K))):
@@ -771,12 +913,9 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                               policy=policy, **extra)
             plan = Engine(g, cfg, device=cuda).plan()
             zero()
-            backends.ell_relax = recorder
-            try:
+            with policy_rec:
                 res = plan.solve(SingleSource(0))
                 torch.cuda.synchronize()
-            finally:
-                backends.ell_relax = real_er
             got = read()
             t = res.telemetry
             check(torch.equal(res.dist, base.dist)
@@ -797,8 +936,8 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                 f"{json.dumps(got)}; {fmt(walls)} after the checked run")
             if (policy, st) == ("rho", "edge"):
                 rho_edge = plan
-    check(rec[0] is not None, "no ell_relax input recorded on the policy "
-          "path")
+    check("ell_relax" in policy_rec.best, "no ell_relax input recorded on "
+          "the policy path")
     dist = base.dist.cpu().numpy()
     far = int(np.argmax(dist))
     p2p = rho_edge.solve(PointToPoint(0, far))
@@ -816,7 +955,10 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         f"({int(within.sum())} vertices), rounds={bnd.telemetry.buckets}")
     log(f"[batch] phase 8 (small-world) took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    return launches_multi, launches_policy, rec[0]
+    return launches_multi, launches_policy, launches_fb, launches_twin, {
+        "smallworld_multisource": lane1.best,
+        "smallworld_policy": policy_rec.best,
+        "smallworld_fallback": capped.best}
 
 
 def main() -> int:
@@ -1066,18 +1208,23 @@ def main() -> int:
         f"{statistics.median(rwalls) * 1e3:.1f} ms over 3")
 
     # -- 8. batched queries and frontier policies (small-world part) -------
-    launches_bm, launches_pol, policy_case = batch_and_policy_path(
-        torch, np, cuda, g, keyed, plans, results, counters)
+    launches_bm, launches_pol, launches_fb, launches_twin, records = \
+        batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
+                              counters)
     check(launches_bm["bucket_scan"] > 0 and launches_bm["ell_relax"] > 0
           and launches_bm["frontier_relax"] > 0,
           "the batched path did not launch bucket_scan, ell_relax and "
           "frontier_relax")
     check(launches_pol["ell_relax"] > 0,
           "the policy path did not launch ell_relax")
+    check(launches_fb["bucket_scan"] > 0 and launches_fb["ell_relax"] > 0
+          and launches_fb["frontier_relax"] > 0,
+          "the capped and fallback solves did not launch bucket_scan, "
+          "ell_relax and frontier_relax")
 
     # -- 5. the game-map path ----------------------------------------------
-    launches_gm, per_grid, grid_case, grid_scan_case, in_solve, \
-        launches_gm_multi = game_map_path(torch, np, cuda, counters)
+    launches_gm, per_grid, gm_records, in_solve, launches_gm_multi = \
+        game_map_path(torch, np, cuda, counters)
     check(launches_gm["grid_relax"] > 0 and launches_gm["bucket_scan"] > 0,
           "the game-map path did not launch grid_relax and bucket_scan")
     check(launches_gm_multi["grid_relax"] > 0
@@ -1088,7 +1235,13 @@ def main() -> int:
     by_path = {"smallworld": launches_sw, "gamemap": launches_gm,
                "smallworld_multisource": launches_bm,
                "smallworld_policy": launches_pol,
+               "smallworld_fallback": launches_fb,
+               "smallworld_fallback_twin": launches_twin,
                "gamemap_multisource": launches_gm_multi}
+    # a full-width twin's re-solve is phase 3's solve of its strategy
+    # (checked bitwise): its kernels are timed on that solve's inputs
+    records = {"smallworld": main_case, **records,
+               "smallworld_fallback_twin": main_case, **gm_records}
     launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     # -- 6. times -----------------------------------------------------------
@@ -1122,19 +1275,16 @@ def main() -> int:
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
 
-    # the lane-by-lane batches make each lane's single-solve calls: timed
-    # at the single solves' recorded inputs
-    aliases = {"smallworld_multisource": "smallworld",
-               "gamemap_multisource": "gamemap"}
-
-    def entry(name, source, replaces, cases):
-        """One kernels-line entry. ``cases`` maps each path that launches
-        the kernel to ``(kernel_fn, twin_fn, nbytes, ops, err, iters)`` at
-        that path's main-run shapes; a path of ``aliases`` reuses its
-        base path's numbers with its own launches."""
+    def entry(name, source, replaces, make):
+        """One kernels-line entry. ``make(args, kw, size)`` turns a
+        recorded input into ``(kernel_fn, twin_fn, nbytes, ops, err,
+        iters)``; every path with a recorded input of the kernel is timed
+        on it (its largest frontier in that path's run)."""
         paths = {}
-        for path, (kernel_fn, twin_fn, nbytes, ops, err, iters) in \
-                cases.items():
+        for path, recs in records.items():
+            if name not in recs:
+                continue
+            kernel_fn, twin_fn, nbytes, ops, err, iters = make(*recs[name])
             wrapper_ms = timed_ms(torch, kernel_fn, iters)
             cold = cold_ms(torch, kernel_fn, iters, scratch)
             kern, _ = profiled(torch, kernel_fn, iters)
@@ -1164,10 +1314,6 @@ def main() -> int:
                 f"launches {by_path[path][name]}")
             for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
                 log(f"[time]   {kms:.4f} ms  {kname[:100]}")
-        for alias, base_path in aliases.items():
-            if by_path[alias][name] > 0:
-                paths[alias] = dict(paths[base_path], timed_as=base_path,
-                                    launches=by_path[alias][name])
         total = sum(p["launches"] for p in paths.values())
         check(total == launches[name], f"{name}: a launching path is not "
               "timed")
@@ -1197,12 +1343,9 @@ def main() -> int:
                 same(torch, bucket_scan_cuda(t_, e_, i_, delta=delta),
                      bucket_scan_ref(t_, e_, i_, delta=delta)), 40)
 
-    (t_, e_, i_), kw, pop = main_case["bucket_scan"]
-    (gt_, ge_, gi_), gkw, _, _ = grid_scan_case
     entry("bucket_scan", "src/repro_torch/csrc/bucket_scan.cu",
           "src/repro/kernels/bucket_scan/bucket_scan.py:36",
-          {"smallworld": scan_case(t_, e_, i_, DELTA),
-           "gamemap": scan_case(gt_, ge_, gi_, gkw["delta"])})
+          lambda args, kw, size: scan_case(*args, kw["delta"]))
 
     def relax_case(fidx, dist, w_ell, m):
         cap, dd = fidx.shape[0], w_ell.shape[1]
@@ -1213,36 +1356,38 @@ def main() -> int:
                 same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
                      (ell_relax_ref(fidx, dist, w_ell),)), 20)
 
-    (fidx, dist, w_ell), kw, m = main_case["ell_relax"]
-    (pfidx, pdist, pw_ell), pm = policy_case
     entry("ell_relax", "src/repro_torch/csrc/ell_relax.cu",
           "src/repro/kernels/ell_relax/ell_relax.py:29",
-          {"smallworld": relax_case(fidx, dist, w_ell, m),
-           "smallworld_policy": relax_case(pfidx, pdist, pw_ell, pm)})
-    (d, e, i, nbr, w), kw, pop = main_case["frontier_relax"]
-    cap, dd = kw["cap"], w.shape[1]
-    filled = min(pop, cap)
+          lambda args, kw, m: relax_case(*args, m))
+
+    def fr_case(args, kw, pop):
+        d, w = args[0], args[4]
+        cap, dd = kw["cap"], w.shape[1]
+        filled = min(pop, cap)
+        return (lambda: run_fr(args, kw, frontier_relax_cuda),
+                lambda: run_fr(args, kw, frontier_relax_ref),
+                8 * d.shape[0] + 4 * cap + 8 * cap * dd
+                + 8 * dd * (filled + int(filled < cap)) + 12,
+                8 * d.shape[0] + 2 * cap * dd,
+                same(torch, run_fr(args, kw, frontier_relax_cuda),
+                     run_fr(args, kw, frontier_relax_ref)), 20)
+
     entry("frontier_relax", "src/repro_torch/csrc/frontier_relax.cu",
-          "src/repro/kernels/frontier_relax/frontier_relax.py:57",
-          {"smallworld": (
-              lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
-              lambda: run_fr((d, e, i, nbr, w), kw, frontier_relax_ref),
-              8 * d.shape[0] + 4 * cap + 8 * cap * dd
-              + 8 * dd * (filled + int(filled < cap)) + 12,
-              8 * d.shape[0] + 2 * cap * dd,
-              same(torch, run_fr((d, e, i, nbr, w), kw, frontier_relax_cuda),
-                   run_fr((d, e, i, nbr, w), kw, frontier_relax_ref)),
-              20)})
-    t_, f_, i_, kw = grid_case
-    hw = t_.numel()
-    moves = 4   # one move class per phase at Δ = 13: 4 straight or 4 diagonal
+          "src/repro/kernels/frontier_relax/frontier_relax.py:57", fr_case)
+
+    def grid_case(args, kw, size):
+        t_, f_, i_ = args
+        hw = t_.numel()
+        moves = 4   # one move class per phase at Δ = 13: 4 straight or
+        #             4 diagonal
+        return (lambda: grid_relax_cuda(t_, f_, i_, **kw),
+                lambda: grid_relax_ref(t_, f_, i_, **kw),
+                9 * hw, hw * (3 + 3 * moves + 2),
+                same(torch, (grid_relax_cuda(t_, f_, i_, **kw),),
+                     (grid_relax_ref(t_, f_, i_, **kw),)), 40)
+
     entry("grid_relax", "src/repro_torch/csrc/grid_relax.cu",
-          "src/repro/kernels/grid_relax/grid_relax.py:45", {"gamemap": (
-              lambda: grid_relax_cuda(t_, f_, i_, **kw),
-              lambda: grid_relax_ref(t_, f_, i_, **kw),
-              9 * hw, hw * (3 + 3 * moves + 2),
-              same(torch, (grid_relax_cuda(t_, f_, i_, **kw),),
-                   (grid_relax_ref(t_, f_, i_, **kw),)), 40)})
+          "src/repro/kernels/grid_relax/grid_relax.py:45", grid_case)
     torch.cuda.synchronize()
 
     log(smi)

@@ -76,17 +76,16 @@ from repro_torch.core.delta_stepping import (
     RunOut,
     _finish_pred,
     _finish_pred_many,
-    _run_many_seq,
+    _run_lanes,
     _run_many_vmapped,
     _run_one,
     _run_one_bounded,
     _run_one_p2p,
     _run_policy_bounded,
-    _run_policy_many_seq,
     _run_policy_one,
     _run_policy_p2p,
 )
-from repro_torch.core.policies import RadiiStore, make_policy
+from repro_torch.core.policies import make_policy
 from repro_torch.core.grid import free_mask_tensor
 from repro_torch.device import resolve_device
 from repro_torch.graphs.structures import COOGraph, INF32
@@ -140,8 +139,7 @@ class Plan:
     query (summed over its lanes, tiles, and a fallback's two solves)."""
 
     def __init__(self, graph: COOGraph, config: DeltaConfig, *,
-                 free_mask=None, fallback: bool = False,
-                 radii_store: Optional[str] = None):
+                 free_mask=None, fallback: bool = False):
         if config.policy != "delta" and (
                 free_mask is not None and config.strategy == "pallas"):
             # a grid plan (make_backend's routing): the stencil
@@ -155,9 +153,7 @@ class Plan:
         self.device = graph.device
         self.backend = make_backend(graph, config, free_mask=free_mask)
         self._packed = config.pred_mode == "packed"
-        self._policy = make_policy(
-            graph, config,
-            store=None if radii_store is None else RadiiStore(radii_store))
+        self._policy = make_policy(graph, config)
         self._bind_drivers()
         # the one overflow-fallback point: only armed when a capped
         # compaction can overflow
@@ -173,15 +169,16 @@ class Plan:
                   device=self.device)
         if self.config.policy == "delta":
             self._run1 = partial(_run_one, **kw)
-            many = (_run_many_vmapped if self.backend.supports_vmap
-                    else _run_many_seq)
-            self._run_many = partial(many, **kw)
+            self._run_many = (
+                partial(_run_many_vmapped, **kw) if self.backend.supports_vmap
+                else partial(_run_lanes, _run_one, **kw))
             self._run_p2p = partial(_run_one_p2p, **kw)
             self._run_bounded = partial(_run_one_bounded, **kw)
         else:
             pol = self._policy
             self._run1 = partial(_run_policy_one, policy=pol, **kw)
-            self._run_many = partial(_run_policy_many_seq, policy=pol, **kw)
+            self._run_many = partial(_run_lanes, _run_policy_one, policy=pol,
+                                     **kw)
             self._run_p2p = partial(_run_policy_p2p, policy=pol, **kw)
             self._run_bounded = partial(_run_policy_bounded, policy=pol,
                                         **kw)

@@ -25,12 +25,12 @@ any, next_bucket)``, plus host-side preprocessing in ``build``. Its
 tensors live on one device; on CUDA the kernels run, on the CPU their
 plain twins (the ops dispatchers decide by the tensor's device).
 
-Batched sources: ``edge`` and ``ell`` (``supports_vmap``, the
-reference's split) also sweep and scan a whole ``[B, n]`` batch at once
-(``sweep_many`` / ``scan_many``), every lane with its own bucket index,
-compaction and overflow flag — the tensor form of the reference's
-``vmap``. The kernel strategies run a batch lane by lane, as the
-reference runs them under ``lax.map``.
+Batched sources: the ``sweep`` and ``scan`` of ``edge`` and ``ell``
+(``supports_vmap``, the reference's split) also take a whole ``[B, n]``
+batch, every lane with its own bucket index, compaction and overflow
+flag — the tensor form of the reference's ``vmap``. The kernel
+strategies run a batch lane by lane, as the reference runs them under
+``lax.map``.
 
 The reference leans on ``jnp.take(..., mode="fill")`` and
 ``.at[].min(..., mode="drop")`` for the sentinel id ``n``. Torch raises
@@ -193,16 +193,18 @@ def edge_sweep(tent, frontier, src, dst, w, *, delta: int, light: bool,
 
 
 def ell_relax_words(tent, fidx, rows_n, rows_w, *, n: int, packed: bool,
-                    canonical: bool = False):
+                    canonical: bool = False, src=None):
     """Candidate words of gathered ELL rows (``rows_n``/``rows_w`` (cap,
     D), global neighbor ids). ``fidx`` int32[cap] holds the global ids
-    of the compacted rows, ``n`` for padding slots (which gather INF)."""
+    of the compacted rows, ``n`` for padding slots (which gather INF).
+    ``src`` is the rows' vertex ids for the packed predecessor, where
+    they differ from ``fidx`` (a flattened batch)."""
     d = dist_of(tent, packed)
     d_ext = torch.cat([d, d.new_full((1,), _INF)])
     d_f = d_ext[fidx][:, None]
     valid = (rows_n < n) & (rows_w < _INF) & (d_f < _INF)
     cand = torch.where(valid, d_f, 0) + torch.where(valid, rows_w, 0)
-    src_ids = fidx[:, None].expand(rows_n.shape)
+    src_ids = (fidx if src is None else src)[:, None].expand(rows_n.shape)
     if packed and canonical:
         word = packing.pack(cand, src_ids)
         ok = valid & (word < _take(tent, rows_n, packing.INF_PACKED))
@@ -214,59 +216,32 @@ def ell_relax_words(tent, fidx, rows_n, rows_w, *, n: int, packed: bool,
 def ell_sweep(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
               canonical: bool = False):
     """Expand compacted frontier rows of an ELL adjacency block.
-    ``fidx`` int32[cap] with sentinel value n for padding slots."""
+    ``fidx`` int32[cap] with sentinel value n for padding slots.
+
+    Over ``[B, n]`` lanes (``fidx`` [B, cap], each lane's own
+    compaction) the batch is one flat tent of ``B * n`` words: lane b's
+    ids are offset by ``b * n`` and its sentinel becomes the flat
+    sentinel ``B * n``, so the single-lane ops run on it unchanged."""
     rows_n = nbr[fidx]                      # (cap, D); row n is all-sentinel
     rows_w = w_ell[fidx]
-    words = ell_relax_words(tent, fidx, rows_n, rows_w, n=n, packed=packed,
-                            canonical=canonical)
-    return _scatter_min(tent, rows_n, words, inf_word(packed))
+    if tent.dim() == 1:
+        words = ell_relax_words(tent, fidx, rows_n, rows_w, n=n,
+                                packed=packed, canonical=canonical)
+        return _scatter_min(tent, rows_n, words, inf_word(packed))
+    b, dd = tent.shape[0], rows_n.shape[-1]
+    off = torch.arange(b, dtype=torch.int64, device=tent.device) * n
 
+    def flat(ids):                          # lane ids → flat ids
+        o = off.reshape((b,) + (1,) * (ids.dim() - 1))
+        return torch.where(ids < n, ids + o, b * n)
 
-def _rows_take(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
-    """Per-lane ``_take``: ``x`` [B, n], ``idx`` [B, ...] in [0, n]."""
-    ext = torch.cat([x, x.new_full((x.shape[0], 1), fill)], dim=1)
-    flat = idx.reshape(idx.shape[0], -1).to(torch.int64)
-    return ext.gather(1, flat).reshape(idx.shape)
-
-
-def ell_sweep_many(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
-                   canonical: bool = False):
-    """``ell_sweep`` over ``[B, n]`` lanes; ``fidx`` int32[B, cap] holds
-    each lane's compacted rows (sentinel n), and each lane's padding
-    words land in its own discarded slot n."""
-    rows_n = nbr[fidx]                      # (B, cap, D)
-    rows_w = w_ell[fidx]
-    d = dist_of(tent, packed)
-    d_f = _rows_take(d, fidx, _INF)[..., None]
-    valid = (rows_n < n) & (rows_w < _INF) & (d_f < _INF)
-    cand = torch.where(valid, d_f, 0) + torch.where(valid, rows_w, 0)
-    src_ids = fidx[..., None].expand(rows_n.shape)
-    if packed and canonical:
-        word = packing.pack(cand, src_ids)
-        ok = valid & (word < _rows_take(tent, rows_n, packing.INF_PACKED))
-        words = torch.where(ok, word, packing.INF_PACKED)
-    else:
-        ok = valid & (cand < _rows_take(d, rows_n, _INF))
-        words = candidate_words(cand, src_ids, ok, packed)
-    b = tent.shape[0]
-    ext = torch.cat([tent, tent.new_full((b, 1), inf_word(packed))], dim=1)
-    ext.scatter_reduce_(1, rows_n.reshape(b, -1).to(torch.int64),
-                        words.reshape(b, -1), "amin", include_self=True)
-    return ext[:, :n]
-
-
-def compact_many(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
-    """``compact_ref`` per lane of ``mask`` bool[B, n]: each lane's
-    ascending set indices, truncated at ``cap``, padded with ``fill`` —
-    ``jnp.nonzero(size=cap, fill_value=fill)`` under ``vmap``."""
-    b, n = mask.shape
-    rank = torch.cumsum(mask, 1, dtype=torch.int32) - 1
-    slot = torch.where(mask & (rank < cap), rank, cap).to(torch.int64)
-    buf = torch.full((b, cap + 1), fill, dtype=torch.int32,
-                     device=mask.device)
-    ids = torch.arange(n, dtype=torch.int32, device=mask.device)
-    buf.scatter_(1, slot, ids.expand(b, n))
-    return buf[:, :cap]
+    flat_rows = flat(rows_n).reshape(-1, dd)
+    words = ell_relax_words(tent.reshape(-1), flat(fidx).reshape(-1),
+                            flat_rows, rows_w.reshape(-1, dd), n=b * n,
+                            packed=packed, canonical=canonical,
+                            src=fidx.reshape(-1))
+    return _scatter_min(tent.reshape(-1), flat_rows, words,
+                        inf_word(packed)).reshape(b, n)
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +250,9 @@ def compact_many(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
 
 class RelaxBackend:
     """Strategy protocol consumed by the solve loop (methods only; concrete
-    backends are frozen dataclasses of tensors). A backend with
-    ``supports_vmap`` also provides ``sweep_many`` and ``scan_many`` over
-    ``[B, n]`` lanes."""
+    backends are frozen dataclasses of tensors). On a backend with
+    ``supports_vmap``, ``sweep`` and ``scan`` also take ``[B, n]`` lanes
+    (``bucket_i`` int32[B, 1] for ``scan``)."""
 
     supports_vmap = True
     delta: int
@@ -288,18 +263,15 @@ class RelaxBackend:
     def scan(self, dist, explored, bucket_i):
         return scan_bucket(dist, explored, bucket_i, delta=self.delta)
 
-    def scan_many(self, dist, explored, bucket_i):
-        return scan_bucket(dist, explored, bucket_i[:, None],
-                           delta=self.delta)
-
 
 class _FrontierCompactMixin:
     """Shared ELL-strategy frontier compaction: masked vertex set → a
     fixed-capacity index buffer (sentinel ``n``) plus the overflow flag.
-    Consumers declare fields ``n`` and ``cap``."""
+    Consumers declare fields ``n`` and ``cap``. Per lane over ``[B, n]``
+    masks."""
 
     def compact(self, mask):
-        return compact_ref(mask, self.cap, self.n), mask.sum() > self.cap
+        return compact_ref(mask, self.cap, self.n), mask.sum(-1) > self.cap
 
 
 class _PallasScanMixin:
@@ -342,9 +314,6 @@ class EdgeBackend(RelaxBackend):
         return tent, torch.zeros(tent.shape[:-1], dtype=torch.bool,
                                  device=tent.device)
 
-    def sweep_many(self, tent, mask, *, light: bool, packed: bool):
-        return self.sweep(tent, mask, None, light=light, packed=packed)
-
 
 @dataclasses.dataclass(frozen=True)
 class EllBackend(_FrontierCompactMixin, RelaxBackend):
@@ -371,13 +340,6 @@ class EllBackend(_FrontierCompactMixin, RelaxBackend):
         tent = ell_sweep(tent, fidx, ell.nbr, ell.w, n=self.n, packed=packed,
                          canonical=self.canonical)
         return tent, over
-
-    def sweep_many(self, tent, mask, *, light: bool, packed: bool):
-        fidx = compact_many(mask, self.cap, self.n)
-        ell = self.light if light else self.heavy
-        tent = ell_sweep_many(tent, fidx, ell.nbr, ell.w, n=self.n,
-                              packed=packed, canonical=self.canonical)
-        return tent, mask.sum(1) > self.cap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,14 +522,12 @@ __all__ = [
     "PallasEllBackend",
     "RelaxBackend",
     "candidate_words",
-    "compact_many",
     "dist_of",
     "edge_candidates",
     "edge_relax_words",
     "edge_sweep",
     "ell_relax_words",
     "ell_sweep",
-    "ell_sweep_many",
     "graph_is_canonical",
     "init_tent",
     "make_backend",

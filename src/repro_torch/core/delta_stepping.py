@@ -25,7 +25,7 @@ while others still sweep, is frozen exactly where ``lax.while_loop``'s
 batching rule freezes it by select (DESIGN.md §3). Every lane is
 bitwise its single solve; all lanes' loop conditions come back in one
 transfer per loop step. The kernel strategies run a batch lane by lane
-(``_run_many_seq``), as the reference runs them under ``lax.map``.
+(``_run_lanes``), as the reference runs them under ``lax.map``.
 
 The frontier-policy loop (``_run_policy``, ρ- and radius-stepping,
 DESIGN.md §15) reads its round condition once per round, and radius's
@@ -144,12 +144,14 @@ def _run_one(backend: RelaxBackend, source: int, *, n: int, packed: bool,
     return _run_backend(backend, source, n=n, packed=packed, device=device)
 
 
-def _run_many_seq(backend: RelaxBackend, sources, *, n: int, packed: bool,
-                  device) -> ManyOut:
-    """Batched solve lane by lane (the reference's ``lax.map``), for the
-    kernel strategies: each lane is one ``_run_backend``."""
-    return _lanes([_run_backend(backend, int(s), n=n, packed=packed,
-                                device=device) for s in sources],
+def _run_lanes(run, backend: RelaxBackend, sources, *, n: int, packed: bool,
+               device, **kw) -> ManyOut:
+    """Batched solve lane by lane (the reference's ``lax.map``): each
+    lane is one call of the single-source driver ``run`` (``_run_one`` on
+    the kernel strategies, ``_run_policy_one`` for every policy batch),
+    which gets ``kw`` too."""
+    return _lanes([run(backend, int(s), n=n, packed=packed, device=device,
+                       **kw) for s in sources],
                   n=n, packed=packed, device=device)
 
 
@@ -171,14 +173,15 @@ def _init_tent_many(n: int, sources, packed: bool, device) -> torch.Tensor:
 def _run_many_vmapped(backend: RelaxBackend, sources, *, n: int,
                       packed: bool, device) -> ManyOut:
     """Batched outer/inner loop over ``[B, n]`` lanes (the reference's
-    ``vmap`` of ``_run_backend``) on a backend with ``sweep_many`` /
-    ``scan_many``. ``act`` marks the lanes whose outer loop still runs,
-    ``go`` the lanes whose light phase still sweeps; every frontier is
-    masked by them, so a frozen lane's sweeps are sentinel no-ops and
-    its state, bucket index and counters stay as they are — the select
-    of ``lax.while_loop``'s batching rule. Host syncs: one per light
-    flag read and one per next-bucket read, for all lanes together,
-    plus one for the overflow flags."""
+    ``vmap`` of ``_run_backend``) on a backend whose ``sweep`` and
+    ``scan`` take lanes (``supports_vmap``; the bucket index goes in as
+    ``i[:, None]``). ``act`` marks the lanes whose outer loop still
+    runs, ``go`` the lanes whose light phase still sweeps; every
+    frontier is masked by them, so a frozen lane's sweeps are sentinel
+    no-ops and its state, bucket index and counters stay as they are —
+    the select of ``lax.while_loop``'s batching rule. Host syncs: one
+    per light flag read and one per next-bucket read, for all lanes
+    together, plus one for the overflow flags."""
     b = len(sources)
     tent = _init_tent_many(n, sources, packed, device)
     explored = torch.full((b, n), _INF, dtype=torch.int32, device=device)
@@ -191,7 +194,8 @@ def _run_many_vmapped(backend: RelaxBackend, sources, *, n: int,
     while bool(act.any()):
         act_d = act.to(device)
         in_s = torch.zeros((b, n), dtype=torch.bool, device=device)
-        f, go_d, _ = backend.scan_many(dist_of(tent, packed), explored, i)
+        f, go_d, _ = backend.scan(dist_of(tent, packed), explored,
+                                  i[:, None])
         go_d = go_d & act_d
         go = go_d.cpu()
         syncs += 1
@@ -199,18 +203,19 @@ def _run_many_vmapped(backend: RelaxBackend, sources, *, n: int,
             f = f & go_d[:, None]
             explored = torch.where(f, dist_of(tent, packed), explored)
             in_s = in_s | f                          # paper: move into S
-            tent, o = backend.sweep_many(tent, f, light=True, packed=packed)
+            tent, o = backend.sweep(tent, f, i, light=True, packed=packed)
             over = over | o
             inner += go.to(torch.int32)
-            f, go_new, _ = backend.scan_many(dist_of(tent, packed),
-                                             explored, i)
+            f, go_new, _ = backend.scan(dist_of(tent, packed), explored,
+                                        i[:, None])
             go_d = go_new & go_d                     # a drained lane stays so
             go = go_d.cpu()
             syncs += 1
         # heavy pass from S; a frozen lane's S is empty
-        tent, o = backend.sweep_many(tent, in_s, light=False, packed=packed)
+        tent, o = backend.sweep(tent, in_s, i, light=False, packed=packed)
         over = over | o
-        _, _, nxt = backend.scan_many(dist_of(tent, packed), explored, i)
+        _, _, nxt = backend.scan(dist_of(tent, packed), explored,
+                                 i[:, None])
         i = torch.where(act_d, nxt, i)
         outer += act.to(torch.int32)
         act = act & (i.cpu() < _IMAX)
@@ -414,15 +419,6 @@ def _run_policy_one(backend: RelaxBackend, source: int, *, policy, n: int,
     """Single-source policy solve."""
     return _run_policy(backend, policy, source, n=n, packed=packed,
                        device=device)
-
-
-def _run_policy_many_seq(backend: RelaxBackend, sources, *, policy, n: int,
-                         packed: bool, device) -> ManyOut:
-    """Batched policy solve, lane by lane on every strategy (a batched
-    ``[B, n]`` policy loop is later work)."""
-    return _lanes([_run_policy(backend, policy, int(s), n=n, packed=packed,
-                               device=device) for s in sources],
-                  n=n, packed=packed, device=device)
 
 
 def _run_policy_p2p(backend: RelaxBackend, source: int, target: int, *,

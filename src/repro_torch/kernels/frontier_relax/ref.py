@@ -14,14 +14,16 @@ def compact_ref(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     ascending indices of the set flags, truncated at ``cap``, padded
     with ``fill``. Rank by running count, scatter the first ``cap``
     ranks into their slots; the rest land in a discarded slot ``cap``.
-    No host synchronisation."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    No host synchronisation. Over ``[B, n]`` lanes each lane is
+    compacted on its own (the reference's ``vmap``)."""
+    n = mask.shape[-1]
+    rank = torch.cumsum(mask, -1, dtype=torch.int32) - 1
     slot = torch.where(mask & (rank < cap), rank, cap).to(torch.int64)
-    buf = torch.full((cap + 1,), fill, dtype=torch.int32, device=mask.device)
-    buf.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
-                                       device=mask.device))
-    return buf[:cap]
+    buf = torch.full(mask.shape[:-1] + (cap + 1,), fill, dtype=torch.int32,
+                     device=mask.device)
+    buf.scatter_(-1, slot, torch.arange(n, dtype=torch.int32,
+                                        device=mask.device).expand(mask.shape))
+    return buf[..., :cap]
 
 
 def frontier_relax_ref(dist, explored, bucket_i, nbr, w_ell, *, delta: int,

@@ -35,7 +35,8 @@ from repro_torch.api import (
     SingleSource,
 )
 from repro_torch.core import DeltaConfig, dijkstra
-from repro_torch.core.delta_stepping import _run_many_seq, _run_many_vmapped
+from repro_torch.core.delta_stepping import (_run_lanes, _run_many_vmapped,
+                                             _run_one)
 from repro_torch.graphs import coo_from_numpy
 
 from test_torch_solve import adversarial_coo
@@ -158,8 +159,11 @@ def test_edge_and_ell_solve_a_batch_as_one_loop(strategy, batched):
     jg, sources = _graph("watts_strogatz")
     plan = Engine(_port_graph(jg), DeltaConfig(delta=7, strategy=strategy),
                   device="cpu").plan()
-    driver = _run_many_vmapped if batched else _run_many_seq
-    assert plan._run_many.func is driver
+    bound = plan._run_many
+    if batched:
+        assert bound.func is _run_many_vmapped
+    else:
+        assert bound.func is _run_lanes and bound.args == (_run_one,)
     plan.solve(MultiSource(sources))
     batch_syncs = plan.host_syncs
     singles = 0

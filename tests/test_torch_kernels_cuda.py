@@ -281,3 +281,52 @@ def test_grid_multisource_on_cuda_equals_cpu(cuda):
         gpu[1][1])
     assert gpu == _answer(Engine(g, cfg, free_mask=free, device="cpu").plan(),
                           MultiSource(sources))
+
+
+def _counted(plan, q):
+    """``_answer`` and the launches it made: [bucket_scan, ell_relax,
+    frontier_relax]."""
+    counters = (bucket_scan_cuda, ell_relax_cuda, frontier_relax_cuda)
+    before = [fn.launches for fn in counters]
+    ans = _answer(plan, q)
+    return ans, [fn.launches - b for fn, b in zip(counters, before)]
+
+
+def _delta_launches(strategy, buckets, inner):
+    """[bucket_scan, ell_relax, frontier_relax] launches of delta solves
+    whose counters sum to ``buckets`` and ``inner``."""
+    return {"ell": [0, 0, 0],
+            "pallas": [2 * buckets + inner, buckets + inner, 0],
+            "fused": [buckets, 0, buckets + inner]}[strategy]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["ell", "pallas", "fused"])
+def test_capped_plan_and_fallback_on_cuda_equal_cpu(cuda, strategy):
+    """A ``frontier_cap`` below the frontier: the capped answer (overflow
+    flagged) and the fallback's (the full-width twin's) are on the card
+    what they are on the CPU, for a single and a batched query, and the
+    kernel strategies launch their kernels in the capped solve and in
+    the twin's."""
+    from repro_torch.api import Engine, MultiSource, SingleSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import watts_strogatz
+    g = watts_strogatz(3000, 10, 0.05, seed=4)
+    cfg = DeltaConfig(delta=10, strategy=strategy, frontier_cap=16)
+
+    def sums(ans):
+        return [int(torch.as_tensor(x).sum()) for x in ans[1][:2]]
+
+    for q in (SingleSource(0), MultiSource([0, 1234, 0])):
+        raw, n_raw = _counted(Engine(g, cfg, device=cuda).plan(), q)
+        assert raw == _answer(Engine(g, cfg, device="cpu").plan(), q)
+        assert torch.as_tensor(raw[1][2]).any()
+        assert n_raw == _delta_launches(strategy, *sums(raw))
+        gpu = Engine(g, cfg, device=cuda).plan(fallback=True)
+        cpu = Engine(g, cfg, device="cpu").plan(fallback=True)
+        res, n_fb = _counted(gpu, q)
+        assert res == _answer(cpu, q)
+        assert not torch.as_tensor(res[1][2]).any()
+        assert gpu.explain()["fallback_taken"]
+        full = _delta_launches(strategy, *sums(res))
+        assert n_fb == [a + b for a, b in zip(n_raw, full)]
