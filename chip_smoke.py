@@ -54,19 +54,24 @@
 6. Times: per strategy the median solve wall time of three solves after
    the warm-up, with host synchronisations and counters.
 7. One profiled solve per strategy (``torch.profiler``): device busy
-   time, idle share and the kernels that take the most device time.
-   Per kernel at the main path's shapes: device time per wrapper call
-   and its twin's (profiler; CUDA events over back-to-back calls for
-   both where the profiler sees no device time for either); ``cold_ms``,
-   CUDA events around each call after a 128 MiB write that empties the
-   L2 and a device-side spin in which the host queues the call (both
-   outside the timed window); on the game-map path ``in_solve_ms``,
-   the profiled solve's device time of the kernel over its launches;
-   and its bound (the bytes this input needs ÷ 3.35 TB/s, or its
-   integer operations ÷ 16.7 T/s, the int32 rate, if larger),
+   time, idle share, the kernels that take the most device time, and
+   the profiler's records of each port kernel against its wrapper's
+   launches. Per kernel at the main path's shapes: device time per
+   wrapper call and its twin's, from CUDA events around back-to-back
+   calls that the host queues during a device-side spin (so no host
+   time enters the window); ``cold_ms``, CUDA events around each call
+   after a 128 MiB write that empties the L2 and a device-side spin in
+   which the host queues the call (both outside the timed window); the
+   profiler's breakdown by kernel where it kept a record of every
+   launch (it loses records of windows a few ms long); on the game-map path
+   ``in_solve_ms``, the profiled solve's device time of the kernel over
+   its launches (null where the profiler dropped a record); and its
+   bound (the bytes this input needs ÷ 3.35 TB/s, or its integer
+   operations ÷ 16.7 T/s, the int32 rate, if larger; the run fails
+   where ``ms`` or ``cold_ms`` falls below it),
    at each path's shapes (``bucket_scan`` runs on the small-world and
    the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
-   kernels line sums every path's counted runs (phases 3, 5 and 8);
+   kernels line sums every path's counted runs (phases 3, 5, 8, 9);
    ``by_path`` gives each path's launches and numbers, and the entry's
    ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
    weighted by those launches, so they move when a path is added.
@@ -109,6 +114,35 @@
    solves, ``fidx`` of 4096 rows; a re-solve is phase 3's solve, so
    its inputs are phase 2's).
 
+9. Dynamic graphs (run after phase 7; it updates phase 3's plans), on
+   the 1 M-vertex small-world graph with the update protocol of
+   ``benchmarks/bench_dynamic.py:_batches`` (seeded id sets of k =
+   20 000 and 200 000 edges, 0.1 % and 1 % of |E|, each with two
+   distinct weight assignments ``clip(w0 + U[-5, 5], 1, 20)``, cycled so
+   no batch is a no-op). ``edge``, ``ell``, ``pallas`` and ``fused``
+   (argmin) and ``fused`` (packed): ``SingleSource(0)``, two warm-up
+   batches, then per k the counted ``plan.solve(UpdateBatch(...))``:
+   warm with ``repaired > 0``, ``dist``/``pred`` bitwise equal to every
+   other strategy's warm answer, to a fresh ``Engine``'s cold solve of
+   the updated graph on ``edge`` and to the plan's own
+   ``resolve(warm=False)`` on the others, ``dist`` equal to scipy's Dijkstra
+   once per k and ``pred`` a shortest-path tree, and launches equal to
+   the warm runs' own equations (``pallas`` on its rebuilt backend;
+   the ``fused`` twin by ``fused``'s; a twin overflow's full-width
+   re-run adds its own). Then, timed: three more batches (update +
+   warm resolve, split into update, host repair planning, warm backend,
+   device loop and the rest, each part checked to be timed, with host
+   syncs) and three ``resolve(warm=False)``,
+   the first held equal to the warm answer (at 1 % on the strategies
+   ``DYN_TIMED_1PCT`` only). ``rho`` and ``radius`` (k = 4) on ``edge``
+   and ``pallas``: one counted warm batch equal to the cold solve of
+   the updated graph. ``square_lattice(1000, weighted=True)`` under
+   ``edge``, ``pallas`` and ``fused``: the tree edge into the vertex
+   farthest from the source raised by 7 and restored, each warm answer
+   equal to the cold one with far fewer buckets; three more flips
+   timed. One profiled warm ``pallas`` batch. The counted runs join
+   ``by_path`` as ``smallworld_warm`` and ``lattice_warm``.
+
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -134,6 +168,13 @@ FLUSH_BYTES = 128 * 2**20
 # device clock cycles (~0.5 ms) of a spin after the flush, in which the
 # host queues the timed call, so host time never enters the window
 QUEUE_CYCLES = 1_000_000
+# H100 SXM boost clock, to size a spin in which the host queues calls
+CLOCK_HZ = 1.98e9
+# the one CUDA kernel each counted wrapper launches once per call
+KERNEL_SYMBOL = {"bucket_scan": "bucket_scan_kernel",
+                 "ell_relax": "ell_relax_kernel",
+                 "frontier_relax": "fr_flags_kernel",
+                 "grid_relax": "grid_relax_kernel"}
 INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
 # the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
@@ -151,6 +192,11 @@ M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
                                720_887, 851_957, 999_999)
 M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
 SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
+# phase 9: 0.1 % and 1 % of |E| per batch, two id sets per k (bench
+# protocol), the strategies timed at 1 %, and the lattice
+DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
+DYN_TIMED_1PCT = ("edge", "pallas")
+LATTICE_SIDE, LATTICE_STRATEGIES = 1000, ("edge", "pallas", "fused")
 
 
 def check(cond, what: str) -> None:
@@ -203,13 +249,46 @@ def cold_ms(torch, fn, iters: int, scratch) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def profiled(torch, fn, iters: int = 1):
-    """Device time per call of ``fn`` by CUDA kernel name, in ms, from
-    ``torch.profiler`` (empty when the profiler saw no device time), and
-    the wall time per call of the profiled window."""
-    from torch.profiler import ProfilerActivity, profile
+def queued_ms(torch, fn, iters: int, per_call_ms: float):
+    """Mean device time per call of ``iters`` back-to-back calls of
+    ``fn`` from CUDA events, the L2 as the calls leave it. A device-side
+    spin, sized from ``per_call_ms`` (the host time of one call at most),
+    precedes the start event, and the host queues every call during it,
+    so no host time enters the window. Returns ``(ms, ahead)``: ``ahead``
+    is false when the spin still ended before the host had queued the
+    calls, after two longer tries (``fn`` synchronises, and its host
+    gaps are in ``ms``). One warm-up call first."""
     fn()
     torch.cuda.synchronize()
+    cycles = QUEUE_CYCLES + int(4 * iters * per_call_ms * 1e-3 * CLOCK_HZ)
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        ahead = not start.query()
+        end.record()
+        end.synchronize()
+        if ahead:
+            break
+        cycles *= 4
+    return start.elapsed_time(end) / iters, ahead
+
+
+def profiled(torch, fn, iters: int = 1, counters=None):
+    """Device time per call of ``fn`` by CUDA kernel name, in ms, from
+    ``torch.profiler``, the wall time per call of the profiled calls, and
+    per counted wrapper ``(records, launches)``: the profiler's records
+    of the wrapper's kernel (``KERNEL_SYMBOL``) against the launches its
+    counter saw in the window. The profiler loses records of windows a
+    few ms long, so its times stand only where the two agree."""
+    from torch.profiler import ProfilerActivity, profile
+    counters = counters or {}
+    fn()
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -217,12 +296,22 @@ def profiled(torch, fn, iters: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    kern = {}
+    kern, records = {}, dict.fromkeys(counters, 0)
     for e in prof.key_averages():
         dt = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
             kern[e.key] = kern.get(e.key, 0.0) + dt / 1e3 / iters
-    return kern, wall
+            for k in counters:
+                if KERNEL_SYMBOL[k] in e.key:
+                    records[k] += e.count
+    seen = {k: (records[k], f.launches - before[k])
+            for k, f in counters.items()}
+    return kern, wall, seen
+
+
+def seen_line(seen) -> str:
+    """The profiler's kernel records against the counted launches."""
+    return ", ".join(f"{k} {r} of {n}" for k, (r, n) in seen.items() if n)
 
 
 def same(torch, a, b) -> int:
@@ -588,22 +677,25 @@ def game_map_path(torch, np, cuda, counters):
         f"{lane1.best['grid_relax'][2]} cells")
 
     # -- 5h. where a grid solve's device time goes --------------------------
-    kern, wall = profiled(torch, lambda: plan.solve(SingleSource(src)))
+    kern, wall, seen = profiled(
+        torch, lambda: plan.solve(SingleSource(src)), counters=counters)
     busy = sum(kern.values())
     log(f"[profile] gamemap/argmin: profiled solve {wall:.1f} ms, device "
         f"busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}), "
-        f"{len(kern)} kernel names")
+        f"{len(kern)} kernel names; kernel records {seen_line(seen)}")
     for kname, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile]   {ms:9.3f} ms  {kname[:110]}")
-    # each kernel's device time in the solve over its launches per solve
+    # each kernel's device time in the solve over its launches in the
+    # profiled solve, where the profiler kept a record of every launch
     in_solve = {}
     for name in ("grid_relax", "bucket_scan"):
-        total = sum(ms for k, ms in kern.items() if f"{name}_kernel" in k)
-        in_solve[name] = total / launches[name] if total > 0 else None
+        total = sum(ms for k, ms in kern.items() if KERNEL_SYMBOL[name] in k)
+        got, n_launch = seen[name]
+        in_solve[name] = total / n_launch if got == n_launch else None
         log(f"[profile] gamemap/argmin: {name} {total:.1f} ms over "
-            f"{launches[name]} launches in the solve = "
-            + (f"{in_solve[name]:.5f} ms/launch" if total > 0 else
-               "not measured (the profiler saw no device time)"))
+            f"{n_launch} launches in the solve = "
+            + (f"{in_solve[name]:.5f} ms/launch" if got == n_launch else
+               f"not measured (the profiler kept {got} records)"))
     t, f, i, kw = main_case
     records = {"gamemap": {"grid_relax": ((t, f, i), kw,
                                           frontier_size(t, i)),
@@ -685,6 +777,18 @@ def frontier_sizes(n: int, names):
              "frontier_relax": lambda a, kw, o: int(o[3]),
              "grid_relax": grid}
     return {name: sizes[name] for name in names}
+
+
+def delta_launches(strategy: str, buckets: int, inner: int) -> dict:
+    """The kernel launches of one bucket-loop run of ``buckets`` buckets
+    and ``inner`` light iterations on a backend of ``strategy`` (``ell``
+    and ``edge`` launch none)."""
+    b = buckets
+    return {"bucket_scan": {"pallas": 2 * b + inner,
+                            "fused": b}.get(strategy, 0),
+            "ell_relax": b + inner if strategy == "pallas" else 0,
+            "frontier_relax": b + inner if strategy == "fused" else 0,
+            "grid_relax": 0}
 
 
 def walls_ms(torch, fn, reps: int):
@@ -834,14 +938,6 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
     # full-width twin's); the capped solves keep each kernel's largest
     # input (fidx of CAP rows), and each capped answer on the card must
     # equal the same plan's on the CPU
-    def equations(st, tel):
-        b, inner = tel.buckets, tel.inner_iters
-        return {"bucket_scan": {"pallas": 2 * b + inner,
-                                "fused": b}.get(st, 0),
-                "ell_relax": b + inner if st == "pallas" else 0,
-                "frontier_relax": b + inner if st == "fused" else 0,
-                "grid_relax": 0}
-
     capped = Largest(backends, frontier_sizes(g.n_nodes, SW_KERNELS))
     launches_fb = dict.fromkeys(counters, 0)      # the capped solves
     launches_twin = dict.fromkeys(counters, 0)    # the twins' re-solves
@@ -857,7 +953,7 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         rt = raw.telemetry
         check(rt.overflow and not rt.fallback,
               f"{st} cap {CAP}: no overflow reported")
-        check(got_raw == equations(st, rt),
+        check(got_raw == delta_launches(st, rt.buckets, rt.inner_iters),
               f"{st} cap {CAP}: launches {got_raw} off the capped solve's "
               "equations")
         t0 = time.perf_counter()
@@ -875,7 +971,8 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         zero()
         res, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
         got = read()
-        want = equations(st, full.telemetry)
+        want = delta_launches(st, full.telemetry.buckets,
+                              full.telemetry.inner_iters)
         check(got == {k: v + want[k] for k, v in got_raw.items()},
               f"{st} cap {CAP}: fallback launches {got} != the capped "
               "solve's + the full-width twin's")
@@ -959,6 +1056,354 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         "smallworld_multisource": lane1.best,
         "smallworld_policy": policy_rec.best,
         "smallworld_fallback": capped.best}
+
+
+def dyn_batches(rng, n_edges: int, w0, k: int, n_sets: int):
+    """The update protocol of ``benchmarks/bench_dynamic.py:_batches``:
+    ``n_sets`` seeded id sets of ``k`` edges, each with two distinct
+    absolute weight assignments (``clip(w0 + U[-5, 5], 1, 20)``, then an
+    elementwise-different one), cycled A1..An, B1..Bn, so re-applying
+    the cycle always changes weights."""
+    import numpy as np
+    sets = []
+    for _ in range(n_sets):
+        ids = rng.choice(n_edges, size=k, replace=False)
+        wa = np.clip(w0[ids] + rng.integers(-5, 6, size=k), 1, 20)
+        wb = np.where(wa < 20, wa + 1, wa - 1)
+        sets.append((ids, wa, wb))
+    return ([(ids, wa) for ids, wa, _ in sets]
+            + [(ids, wb) for ids, _, wb in sets])
+
+
+class Split:
+    """While active, times the parts of a plan's ``UpdateBatch`` solves:
+    ``update`` (the weight swap and backend rebuild), the host repair
+    planning (``plan_repair``, the device-to-host copies of its inputs
+    included), the choice (or build) of the warm backend, and each warm
+    run of the solve loop, whose ``(kind, cap, buckets, inner_iters,
+    overflow)`` it also keeps (``kind``: the backend's launch
+    equations). Each part ends in a synchronize."""
+
+    KIND = {"PallasEllBackend": "pallas", "FusedBackend": "fused"}
+
+    def __init__(self, torch, plan, engine_mod):
+        self.torch, self.plan, self.engine = torch, plan, engine_mod
+        self.ms = {"update": 0.0, "planning": 0.0, "twin": 0.0,
+                   "loop": 0.0}
+        self.runs = []
+
+    def _timed(self, part, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    def _wrap_warm(self):
+        real = self.plan._run_warm
+        timed = self._timed("loop", real)
+
+        def warm(backend, tent0, explored0):
+            out = timed(backend, tent0, explored0)
+            self.runs.append((self.KIND.get(type(backend).__name__, "ell"),
+                              getattr(backend, "cap", None), out.outer_iters,
+                              out.inner_iters, out.overflow))
+            return out
+        warm.split = self
+        self.plan._run_warm = warm
+
+    def __enter__(self):
+        plan = self.plan
+        real_update = plan.update
+        timed_update = self._timed("update", real_update)
+
+        def update(*args, **kw):
+            out = timed_update(*args, **kw)
+            if getattr(plan._run_warm, "split", None) is not self:
+                self._wrap_warm()       # a radius plan rebinds its drivers
+            return out
+        plan.update = update
+        plan._warm_backend = self._timed("twin", plan._warm_backend)
+        self._wrap_warm()
+        self.real_pr = self.engine.plan_repair
+        self.engine.plan_repair = self._timed("planning", self.real_pr)
+        return self
+
+    def __exit__(self, *exc):
+        del self.plan.update, self.plan._warm_backend
+        self.plan._bind_drivers()
+        self.engine.plan_repair = self.real_pr
+
+    def check_parts(self, tag: str) -> None:
+        """Every part was timed: a part left at 0 ms means the engine no
+        longer calls the name it is timed through."""
+        check(all(v > 0 for v in self.ms.values()) and self.runs,
+              f"{tag}: a part of the split was not timed ({self.ms})")
+
+    def launches(self) -> dict:
+        """The warm runs' launches by their own counters' equations (a
+        policy loop: two ``ell_relax`` launches per step on ``pallas``,
+        no bucket scan)."""
+        want = dict.fromkeys(("bucket_scan", "ell_relax", "frontier_relax",
+                              "grid_relax"), 0)
+        policy = self.plan.config.policy != "delta"
+        for kind, _, b, inner, _ in self.runs:
+            got = (dict(want, ell_relax=2 * inner if kind == "pallas" else 0)
+                   if policy else delta_launches(kind, b, inner))
+            for k, v in got.items():
+                want[k] += v
+        return want
+
+
+def dynamic_path(torch, np, cuda, g, plans, counters):
+    """Phase 9: warm re-solves at full width (see the module note).
+    Returns the launches of the small-world and the lattice warm paths
+    and, per path, each kernel's recorded input with the largest
+    frontier."""
+    import repro_torch.api.engine as engine_mod
+    import repro_torch.core.backends as backends
+    from repro_torch.api import Engine, SingleSource, UpdateBatch
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import square_lattice
+
+    t_phase = time.perf_counter()
+    n, n_edges = g.n_nodes, g.n_edges
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def same_answer(a, b):
+        return torch.equal(a.dist, b.dist) and torch.equal(a.pred, b.pred)
+
+    def counted(plan, q, rec, total):
+        """One counted run of ``q`` on ``plan``: launches (added to
+        ``total``) held to the warm runs' equations, inputs kept by
+        ``rec`` (its sizing adds one host sync per kernel call), and the
+        run's split. Not timed: ``timed_bumps`` gives the times."""
+        zero()
+        with rec, Split(torch, plan, engine_mod) as split:
+            res = plan.solve(q)
+            torch.cuda.synchronize()
+        got = read()
+        split.check_parts("counted run")
+        check(got == split.launches(), f"launches {got} off the warm runs' "
+              f"equations {split.launches()} ({split.runs})")
+        for k, v in got.items():
+            total[k] += v
+        return res, got, split
+
+    def timed_bumps(plan, batches):
+        """One ``UpdateBatch`` solve per batch, each timed whole and
+        split: update, planning, warm backend, device loop, the rest;
+        host syncs."""
+        rows = []
+        for ids, w in batches:
+            with Split(torch, plan, engine_mod) as split:
+                res, walls = walls_ms(
+                    torch, lambda: plan.solve(UpdateBatch(ids, w)), 1)
+            check(res.telemetry.warm and res.telemetry.repaired > 0,
+                  "a timed batch did not repair warm")
+            split.check_parts("timed batch")
+            rows.append((walls[0], split.ms, plan.host_syncs))
+        return rows
+
+    def split_line(rows) -> str:
+        walls = [r[0] for r in rows]
+        parts = {k: statistics.median(r[1][k] for r in rows)
+                 for k in ("update", "planning", "twin", "loop")}
+        rest = statistics.median(r[0] - sum(r[1].values()) for r in rows)
+        return (f"update + warm resolve {fmt(walls)}: update "
+                f"{parts['update']:.1f}, host repair planning "
+                f"{parts['planning']:.1f} (share "
+                f"{parts['planning'] / statistics.median(walls):.3f}), warm "
+                f"backend {parts['twin']:.1f}, device loop "
+                f"{parts['loop']:.1f}, rest {rest:.1f} ms (medians); host "
+                f"syncs {[r[2] for r in rows]}")
+
+    w0 = g.w.cpu().numpy()
+    rng = np.random.default_rng(DYN_SEED)
+    cycles = {k: dyn_batches(rng, n_edges, w0, k, DYN_SETS) for k in DYN_KS}
+    launches_sw = dict.fromkeys(counters, 0)
+    sw_rec = Largest(backends, frontier_sizes(n, SW_KERNELS))
+    keys = (("edge", "argmin"), ("ell", "argmin"), ("pallas", "argmin"),
+            ("fused", "argmin"), ("fused", "packed"))
+    for key in keys:        # phase 6 solved SingleSource(0) on each plan
+        check(plans[key].explain()["resident_source"] == 0,
+              f"{key}: no resident SingleSource(0)")
+
+    # -- 9a/9b. the strategies at 0.1 % and 1 % of |E| ------------------
+    for k in DYN_KS:
+        seq = cycles[k]
+        first = k == DYN_KS[0]
+        # the first k: two warm-up batches, the counted one, then three
+        # timed; the second k: the counted one, then three timed
+        warmups, counted_b = (seq[:2], seq[2]) if first else ([], seq[0])
+        timed_b = [seq[3], seq[0], seq[1]] if first else seq[1:4]
+        agreed = oracle = None
+        for key in keys:
+            st, pm = key
+            plan = plans[key]
+            for ids, w in warmups:
+                plan.solve(UpdateBatch(ids, w))
+            res, got, split = counted(plan, UpdateBatch(*counted_b),
+                                      sw_rec, launches_sw)
+            t = res.telemetry
+            check(t.warm and t.repaired > 0 and not t.fallback,
+                  f"{st}/{pm} k={k}: no warm repair")
+            if oracle is None:
+                t0 = time.perf_counter()
+                oracle, ok_keyed = oracle_dist(plan.graph)
+                check(np.array_equal(res.dist.cpu().numpy().astype(np.int64),
+                                     oracle), f"k={k}: warm dist differs "
+                      "from the scipy oracle")
+                check_tree(res.dist.cpu().numpy(), res.pred.cpu().numpy(), 0,
+                           ok_keyed)
+                log(f"[dyn] k={k}: {st}/{pm} warm dist == scipy dijkstra on "
+                    f"the updated graph, pred tree ok (oracle "
+                    f"{time.perf_counter() - t0:.1f} s)")
+                agreed = res
+            check(same_answer(res, agreed),
+                  f"{st}/{pm} k={k}: warm answer differs from edge's")
+            if st == "edge":
+                # a fresh Engine of the ELL strategies is a host ELL build
+                # (~3 s at 1 M); they are held to edge's warm answer and to
+                # their own cold solve of the updated graph
+                fresh, walls = walls_ms(torch, lambda: Engine(
+                    plan.graph, DeltaConfig(delta=DELTA, strategy=st,
+                                            pred_mode=pm),
+                    device=cuda).plan().solve(SingleSource(0)), 1)
+                check(same_answer(res, fresh),
+                      f"{st}/{pm} k={k}: warm != a fresh Engine's cold solve")
+                fresh_note = f"== a fresh Engine ({walls[0]:.0f} ms)"
+            elif first or st in DYN_TIMED_1PCT:
+                fresh_note = "(held to resolve(warm=False) below)"
+            else:
+                cold, walls = walls_ms(
+                    torch, lambda: plan.resolve(warm=False), 1)
+                check(same_answer(res, cold) and not cold.telemetry.warm,
+                      f"{st}/{pm} k={k}: warm != resolve(warm=False)")
+                fresh_note = f"== resolve(warm=False) ({walls[0]:.0f} ms)"
+            log(f"[dyn] {st}/{pm} k={k}: warm {fresh_note}, == edge's; "
+                f"buckets={t.buckets} inner_iters={t.inner_iters} "
+                f"repaired={t.repaired} cone={t.cone} "
+                f"host_syncs={plan.host_syncs} runs {split.runs} launches "
+                f"{json.dumps(got)}; counted run: update "
+                f"{split.ms['update']:.1f}, planning "
+                f"{split.ms['planning']:.1f}, warm backend "
+                f"{split.ms['twin']:.1f}, loop {split.ms['loop']:.1f} ms")
+            if first or st in DYN_TIMED_1PCT:
+                # timed: three cold re-solves (the first held to the warm
+                # answer), then three batches after the counted one
+                cold, walls = walls_ms(
+                    torch, lambda: plan.resolve(warm=False), 3)
+                check(same_answer(cold, res) and not cold.telemetry.warm,
+                      f"{st}/{pm} k={k}: resolve(warm=False) differs")
+                log(f"[time] dyn {st}/{pm} k={k}: "
+                    + split_line(timed_bumps(plan, timed_b))
+                    + f"; resolve(warm=False) {fmt(walls)}, buckets="
+                    f"{cold.telemetry.buckets} host_syncs={plan.host_syncs}")
+    check(all(launches_sw[x] > 0 for x in SW_KERNELS),
+          f"the small-world warm path missed a kernel: {launches_sw}")
+
+    # -- 9c. frontier policies, warm --------------------------------------
+    for policy, extra in (("rho", {}), ("radius", dict(radius_k=RADIUS_K))):
+        for st in ("edge", "pallas"):
+            cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin",
+                              policy=policy, **extra)
+            plan = Engine(g, cfg, device=cuda).plan()
+            plan.solve(SingleSource(0))
+            res, got, split = counted(
+                plan, UpdateBatch(*cycles[DYN_KS[0]][0]), sw_rec, launches_sw)
+            t = res.telemetry
+            check(t.warm and t.repaired > 0, f"{st}/{policy}: no warm repair")
+            cold, walls = walls_ms(torch, lambda: plan.resolve(warm=False), 1)
+            check(same_answer(res, cold),
+                  f"{st}/{policy}: warm != the cold solve of the updated graph")
+            log(f"[dyn] {st}/{policy} k={DYN_KS[0]}: warm == cold (rounds="
+                f"{t.buckets} steps={t.inner_iters} repaired={t.repaired} "
+                f"cone={t.cone}; cold rounds={cold.telemetry.buckets}), "
+                f"launches {json.dumps(got)}; counted run: update "
+                f"{split.ms['update']:.1f}, planning "
+                f"{split.ms['planning']:.1f}, loop {split.ms['loop']:.1f} ms;"
+                f" cold {walls[0]:.1f} ms")
+            del plan
+
+    # -- 9d. long diameter: one far edge flipped on the lattice -----------
+    t0 = time.perf_counter()
+    lat = square_lattice(LATTICE_SIDE, weighted=True)
+    t_gen = time.perf_counter() - t0
+    launches_lat = dict.fromkeys(counters, 0)
+    lat_rec = Largest(backends, frontier_sizes(lat.n_nodes, SW_KERNELS))
+    edge_id = cold_up = None
+    for st in LATTICE_STRATEGIES:
+        cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin")
+        plan = Engine(lat, cfg, device=cuda).plan()
+        base, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
+        b_cold = base.telemetry.buckets
+        if edge_id is None:
+            # the tree edge into the vertex farthest from the source
+            dist = base.dist.cpu().numpy()
+            v = int(np.argmax(np.where(dist < INF, dist, -1)))
+            p = int(base.pred[v])
+            src, dst = lat.src.numpy(), lat.dst.numpy()
+            edge_id = int(np.flatnonzero((src == p) & (dst == v))[0])
+            w_e = int(lat.w[edge_id])
+            log(f"[dyn] lattice {LATTICE_SIDE}x{LATTICE_SIDE}: n={lat.n_nodes}"
+                f" |E|={lat.n_edges}; far vertex {v} at distance "
+                f"{int(dist[v])}, its tree edge {edge_id} ({p}->{v}, w={w_e}),"
+                f" generated in {t_gen:.1f} s, cold solve {walls[0]:.0f} ms")
+        up, got_up, split_up = counted(
+            plan, UpdateBatch([edge_id], [w_e + 7]), lat_rec, launches_lat)
+        if cold_up is None:
+            cold_up = plan.resolve(warm=False)
+        check(same_answer(up, cold_up), f"lattice {st}: warm != cold after "
+              "the increase")
+        back, got_back, split_back = counted(
+            plan, UpdateBatch([edge_id], [w_e]), lat_rec, launches_lat)
+        check(same_answer(back, base), f"lattice {st}: warm != the cold "
+              "solve after the edge is restored")
+        for r in (up, back):
+            check(r.telemetry.warm and r.telemetry.repaired > 0
+                  and 2 * r.telemetry.buckets < b_cold,
+                  f"lattice {st}: not far fewer buckets warm than cold")
+        rows = timed_bumps(plan, [([edge_id], [w_e + 7]), ([edge_id], [w_e]),
+                                  ([edge_id], [w_e + 7])])
+        log(f"[dyn] lattice {st}: warm == cold; buckets warm "
+            f"{up.telemetry.buckets} / {back.telemetry.buckets} against cold "
+            f"{b_cold} (inner_iters {up.telemetry.inner_iters} / "
+            f"{back.telemetry.inner_iters} against "
+            f"{base.telemetry.inner_iters}), repaired "
+            f"{up.telemetry.repaired} / {back.telemetry.repaired}, runs "
+            f"{split_up.runs} / {split_back.runs}, launches "
+            f"{json.dumps(got_up)} / {json.dumps(got_back)}")
+        log(f"[time] dyn lattice {st}: {split_line(rows)}; cold "
+            f"SingleSource {walls[0]:.1f} ms")
+        del plan
+    check(all(launches_lat[x] > 0 for x in SW_KERNELS),
+          f"the lattice warm path missed a kernel: {launches_lat}")
+
+    # -- 9e. where a warm solve's device time goes ------------------------
+    plan = plans[("pallas", "argmin")]
+    # B2, then A2, of the first k: both change weights the plan holds
+    flip = iter([cycles[DYN_KS[0]][3], cycles[DYN_KS[0]][1]])
+    kern, wall, seen = profiled(torch, lambda: plan.solve(
+        UpdateBatch(*next(flip))), counters=counters)
+    busy = sum(kern.values())
+    log(f"[profile] warm pallas k={DYN_KS[0]}: profiled solve {wall:.1f} ms "
+        f"(update included), device busy {busy:.1f} ms (idle share "
+        f"{1 - busy / wall:.3f}), {len(kern)} kernel names; kernel records "
+        f"{seen_line(seen)}")
+    for kname, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   {ms:9.3f} ms  {kname[:110]}")
+    log(f"[dyn] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_sw, launches_lat, {"smallworld_warm": sw_rec.best,
+                                       "lattice_warm": lat_rec.best}
 
 
 def main() -> int:
@@ -1262,15 +1707,23 @@ def main() -> int:
     # -- 7. where a solve's device time goes (one profiled solve each) ------
     for key in (("fused", "argmin"), ("pallas", "argmin"), ("ell", "argmin"),
                 ("edge", "argmin")):
-        kern, wall = profiled(torch, lambda: plans[key].solve(
-            SingleSource(0)))
+        kern, wall, seen = profiled(torch, lambda: plans[key].solve(
+            SingleSource(0)), counters=counters)
         busy = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         log(f"[profile] {key[0]}/{key[1]}: profiled solve {wall:.1f} ms, "
             f"device busy {busy:.1f} ms (idle share "
-            f"{1 - busy / wall:.3f}), {len(kern)} kernel names")
+            f"{1 - busy / wall:.3f}), {len(kern)} kernel names; kernel "
+            f"records {seen_line(seen)}")
         for name, ms in top:
             log(f"[profile]   {ms:9.3f} ms  {name[:110]}")
+
+    # -- 9. dynamic graphs: warm re-solves (updates phase 3's plans) -------
+    launches_dyn, launches_lat, dyn_records = dynamic_path(
+        torch, np, cuda, g, plans, counters)
+    by_path.update(smallworld_warm=launches_dyn, lattice_warm=launches_lat)
+    records.update(dyn_records)
+    launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
@@ -1279,40 +1732,58 @@ def main() -> int:
         """One kernels-line entry. ``make(args, kw, size)`` turns a
         recorded input into ``(kernel_fn, twin_fn, nbytes, ops, err,
         iters)``; every path with a recorded input of the kernel is timed
-        on it (its largest frontier in that path's run)."""
+        on it (its largest frontier in that path's run). ``ms`` and
+        ``plain_ms`` are CUDA-event device times of back-to-back calls
+        queued during a spin (``queued_ms``); ``wrapper_ms`` the same
+        calls without the spin (host launch time included); ``cold_ms``
+        one call at a time with the L2 emptied. The profiler only breaks
+        a call's device time down by kernel, where it kept a record of
+        every launch."""
         paths = {}
+        counter = {name: counters[name]}
         for path, recs in records.items():
             if name not in recs:
                 continue
             kernel_fn, twin_fn, nbytes, ops, err, iters = make(*recs[name])
+            twin_iters = max(1, iters // 4)
             wrapper_ms = timed_ms(torch, kernel_fn, iters)
+            ms, ahead = queued_ms(torch, kernel_fn, iters, wrapper_ms)
+            check(ahead, f"{name} ({path}): the host did not queue the "
+                  "timed calls within the spin")
+            plain_ms, plain_ahead = queued_ms(
+                torch, twin_fn, twin_iters,
+                timed_ms(torch, twin_fn, twin_iters))
             cold = cold_ms(torch, kernel_fn, iters, scratch)
-            kern, _ = profiled(torch, kernel_fn, iters)
-            twin, _ = profiled(torch, twin_fn, max(1, iters // 4))
-            dev_ms, plain_ms = sum(kern.values()), sum(twin.values())
-            if dev_ms > 0 and plain_ms > 0:
-                ms, how = dev_ms, "profiler device time per wrapper call"
-            else:   # the profiler saw no device time for one of the two
-                ms, how = wrapper_ms, "CUDA events over back-to-back calls"
-                plain_ms = timed_ms(torch, twin_fn, max(1, iters // 4))
+            kern, _, seen = profiled(torch, kernel_fn, iters, counter)
+            kept, n_launch = seen[name]
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / ALU_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            check(ms >= bound and cold >= bound,
+                  f"{name} ({path}): {ms:.4f} ms (L2 cold {cold:.4f} ms) "
+                  f"is below the {bound:.4f} ms bound")
             paths[path] = {
                 "launches": by_path[path][name], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "max_abs_err": err, "ms_how": how, "wrapper_ms": wrapper_ms,
+                "max_abs_err": err, "wrapper_ms": wrapper_ms,
                 "cold_ms": cold, "bytes": nbytes, "ops": ops}
-            if path == "gamemap":     # None: the profiler saw no time
+            if path == "gamemap":     # None: the profiler dropped records
                 paths[path]["in_solve_ms"] = in_solve[name]
-            log(f"[time] kernel {name} ({path}): {ms:.4f} ms/launch ({how}; "
-                f"events {wrapper_ms:.4f} ms; L2 cold {cold:.4f} ms"
+            log(f"[time] kernel {name} ({path}): {ms:.4f} ms/launch (CUDA "
+                f"events, calls queued; back to back {wrapper_ms:.4f} ms; "
+                f"L2 cold {cold:.4f} ms"
                 + (f"; in the solve {in_solve[name]:.4f} ms"
                    if paths[path].get("in_solve_ms") is not None else "")
-                + f"), twin {plain_ms:.4f} ms, bound "
-                f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes, {ops} ops), "
-                f"launches {by_path[path][name]}")
-            for kname, kms in sorted(kern.items(), key=lambda kv: -kv[1]):
+                + f"), twin {plain_ms:.4f} ms"
+                + ("" if plain_ahead else " (it synchronises: host gaps "
+                   "included)")
+                + f", bound {bound:.4f} ms ({nbytes} bytes, {ops} ops), "
+                f"launches {by_path[path][name]}; the profiler kept "
+                f"{kept} records of {n_launch} launches"
+                + ("" if kept == n_launch else ": no breakdown"))
+            for kname, kms in (sorted(kern.items(), key=lambda kv: -kv[1])
+                               if kept == n_launch else ()):
                 log(f"[time]   {kms:.4f} ms  {kname[:100]}")
         total = sum(p["launches"] for p in paths.values())
         check(total == launches[name], f"{name}: a launching path is not "

@@ -25,6 +25,16 @@ re-answered on a full-width twin plan, the plan demotes to it for good
 and the result's ``telemetry.fallback`` is set. Without it the flag is
 only reported.
 
+Dynamic graphs (``repro_torch.dynamic``, DESIGN.md §11): a plan is
+also the unit of *residency*. Solving ``SingleSource`` keeps the
+converged answer and the weight tensor it was solved against on the
+plan (device tensors; they reach the host only inside ``resolve``);
+``plan.update(edge_ids, new_weights)`` swaps edge costs (topology
+fixed), and ``plan.resolve(warm=True)`` re-solves the resident problem
+by warm-start repair — bitwise identical to a cold solve of the updated
+graph. ``plan.solve(UpdateBatch(...))`` is the query-algebra packaging
+of the same pair.
+
 Game maps: ``free_mask`` (bool[H, W], H * W = n) routes
 ``strategy='pallas'`` to the grid stencil ``kernels/grid_relax``; other
 strategies ignore it, as in the reference. A grid plan refuses packed
@@ -39,9 +49,8 @@ strategies launch the hand-written kernels; on the CPU their twins run.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): tuning (``Engine(graph)`` without a config, ROADMAP Queue 1 item
-11), the landmark ``PointToPoint`` modes (item 10), weight updates on
-sparse graphs (``Plan.update``/``UpdateBatch``, item 9) and the sharded
-strategies (item 12).
+11), the landmark ``PointToPoint`` modes and their update hook (item
+10) and the sharded strategies (item 12).
 """
 from __future__ import annotations
 
@@ -70,7 +79,14 @@ from repro_torch.api.queries import (
     Telemetry,
     UpdateBatch,
 )
-from repro_torch.core.backends import GridPallasBackend, dist_of, make_backend
+from repro_torch.core.backends import (
+    EllBackend,
+    FusedBackend,
+    GridPallasBackend,
+    PallasEllBackend,
+    dist_of,
+    make_backend,
+)
 from repro_torch.core.delta_stepping import (
     DeltaConfig,
     RunOut,
@@ -81,13 +97,17 @@ from repro_torch.core.delta_stepping import (
     _run_one,
     _run_one_bounded,
     _run_one_p2p,
+    _run_one_warm,
     _run_policy_bounded,
     _run_policy_one,
     _run_policy_p2p,
+    _run_policy_warm,
+    pred_argmin,
 )
 from repro_torch.core.policies import make_policy
 from repro_torch.core.grid import free_mask_tensor
 from repro_torch.device import resolve_device
+from repro_torch.dynamic import Resident, apply_weight_update, plan_repair
 from repro_torch.graphs.structures import COOGraph, INF32
 
 _INF = int(INF32)
@@ -135,8 +155,10 @@ def _check_vertices(name: str, arr: np.ndarray, n: int) -> None:
 class Plan:
     """A built operating point for one graph: config, relaxation backend,
     the solve drivers of its frontier policy, and the device the solve
-    runs on. ``host_syncs`` holds the host synchronisations of the last
-    query (summed over its lanes, tiles, and a fallback's two solves)."""
+    runs on; updatable in place for dynamic edge costs via ``update`` /
+    ``resolve``. ``host_syncs`` holds the host synchronisations of the
+    last query (summed over its lanes, tiles, a fallback's two solves,
+    or a warm re-solve's two runs when the repair twin overflowed)."""
 
     def __init__(self, graph: COOGraph, config: DeltaConfig, *,
                  free_mask=None, fallback: bool = False):
@@ -160,10 +182,22 @@ class Plan:
         self._fallback = bool(fallback) and config.frontier_cap is not None
         self._demoted: Optional[Plan] = None
         self.host_syncs: Optional[int] = None
+        # dynamic residency: the last SingleSource answer and the weight
+        # tensor it was solved against
+        self._resident: Optional[Resident] = None
+        # warm-repair twin backend cache: (cap, graph version) -> backend
+        self._graph_version = 0
+        self._repair_twin = None
+        self._repair_twin_key = None
+        self._twin_cap_floor = 64   # escalates on twin overflow (sticky)
+        # host copies of the fixed topology (int64 src, dst) and the
+        # weight-independent ELL pad width, made on first use
+        self._topology = None
+        self._twin_width = None
 
     def _bind_drivers(self) -> None:
         """Partially apply the solve drivers for the plan's policy. Every
-        query kind dispatches through these four attributes, so the
+        query kind dispatches through these five attributes, so the
         policy axis is invisible past this point."""
         kw = dict(n=self.graph.n_nodes, packed=self._packed,
                   device=self.device)
@@ -174,6 +208,7 @@ class Plan:
                 else partial(_run_lanes, _run_one, **kw))
             self._run_p2p = partial(_run_one_p2p, **kw)
             self._run_bounded = partial(_run_one_bounded, **kw)
+            self._run_warm = partial(_run_one_warm, **kw)
         else:
             pol = self._policy
             self._run1 = partial(_run_policy_one, policy=pol, **kw)
@@ -182,14 +217,21 @@ class Plan:
             self._run_p2p = partial(_run_policy_p2p, policy=pol, **kw)
             self._run_bounded = partial(_run_policy_bounded, policy=pol,
                                         **kw)
+            self._run_warm = partial(_run_policy_warm, policy=pol, **kw)
 
     def solve(self, query: Query) -> Result:
         """Answer one query. With fallback armed, a solve that trips the
         compacted-frontier overflow flag is re-answered by the
-        full-width twin plan, and the plan demotes to it for good."""
+        full-width twin plan, and the plan demotes to it for good.
+
+        ``UpdateBatch`` is the one query kind that mutates the plan: it
+        routes through ``update`` + ``resolve`` and takes no part in
+        overflow demotion (the warm contract refuses an overflowed
+        resident state, and the re-solve reports its own overflow
+        flag)."""
         if isinstance(query, UpdateBatch):
-            # refused on a grid plan, not ported on others: both raise
             self.update(query.edge_ids, query.new_weights)
+            return self.resolve(warm=query.warm)
         if self._demoted is not None:
             res = _mark_fallback(self._demoted._dispatch(query))
             self.host_syncs = self._demoted.host_syncs
@@ -208,7 +250,8 @@ class Plan:
         can overflow, and their blocks do not depend on the cap, so the
         twin shares them, the graph and the policy, and only widens
         ``cap`` to ``n`` (the reference rebuilds the whole plan; the
-        answers are the same)."""
+        answers are the same). The resident state rides along: it was
+        solved on the same graph and pred mode."""
         twin = copy.copy(self)
         twin.config = dataclasses.replace(self.config, frontier_cap=None)
         twin.backend = dataclasses.replace(self.backend,
@@ -217,23 +260,186 @@ class Plan:
         twin._bind_drivers()
         return twin
 
+    # -- dynamic updates (repro_torch.dynamic, DESIGN.md §11) ---------------
+
     def update(self, edge_ids, new_weights) -> "Plan":
-        """Edge-cost updates. A grid plan refuses them as the reference
-        does; on other plans they are not ported yet."""
+        """Apply an edge-cost update batch to the plan in place: swap
+        weights (topology fixed), rebuild the relaxation backend on the
+        updated graph, and leave the resident answer untouched until the
+        next ``resolve`` diffs against its snapshot — so several batches
+        between resolves compose. A grid plan refuses them, as the
+        reference does. Returns ``self``."""
         if isinstance(self.backend, GridPallasBackend):
             raise UpdateRefused(
                 "grid-stencil (game-map) plans take their costs from "
                 "DeltaConfig.grid_costs, not the COO weight array; "
                 "edge-weight updates do not apply to them",
                 reason="grid_costs")
-        raise NotImplementedError(
-            "dynamic updates (Plan.update, UpdateBatch) are not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 9)")
+        graph = apply_weight_update(self.graph, edge_ids, new_weights)
+        self._install(graph, self._rebuild_backend(graph))
+        if self._demoted is not None:
+            # the full-width twin shares the rebuilt blocks (and the
+            # radius policy), as at demotion
+            self._demoted._install(
+                graph, dataclasses.replace(self.backend, cap=graph.n_nodes),
+                self._policy)
+        return self
+
+    def _install(self, graph: COOGraph, backend, policy=None) -> None:
+        """Make ``graph`` (and its ``backend``) the plan's current one.
+        Radius-stepping's step radii derive from the weights: recomputed
+        (or taken as ``policy``) and the drivers rebound."""
+        self.graph = graph
+        self.backend = backend
+        self._graph_version += 1
+        if self.config.policy == "radius":
+            self._policy = (policy if policy is not None
+                            else make_policy(graph, self.config))
+            self._bind_drivers()
+
+    def _rebuild_backend(self, graph: COOGraph):
+        """Backend over the updated weights. The ELL strategies pad their
+        light/heavy blocks to the tightest width at plan time, a width
+        that moves with edge costs (the split is w <= Δ); rebuilds pin
+        the weight-independent full adjacency degree instead, as the
+        reference does, so every update yields the same shapes."""
+        cls = {"ell": EllBackend, "pallas": PallasEllBackend,
+               "fused": FusedBackend}.get(self.config.strategy)
+        if cls is None:
+            return make_backend(graph, self.config)
+        return cls.build(graph, self.config, max_deg=self._adjacency_width())
+
+    def _host_topology(self):
+        """Host int64 copies of ``src``/``dst``, made once per plan:
+        topology never changes, so repair planning never pulls it back
+        from the device."""
+        if self._topology is None:
+            self._topology = tuple(
+                t.cpu().numpy().astype(np.int64)
+                for t in (self.graph.src, self.graph.dst))
+        return self._topology
+
+    def _adjacency_width(self) -> int:
+        """Max out-degree — the weight-independent ELL pad width."""
+        if self._twin_width is None:
+            deg = np.bincount(self._host_topology()[0],
+                              minlength=self.graph.n_nodes)
+            self._twin_width = max(1, int(deg.max())) if deg.size else 1
+        return self._twin_width
+
+    def _warm_backend(self, repaired: int):
+        """Backend for a warm repair solve. Repair frontiers are small,
+        so ``edge``, ``ell`` and ``fused`` sweep a frontier-compacted
+        twin whose capacity is a power-of-two head-room over the seed
+        count (at least 64, doubled until it is 2 × ``repaired``): an
+        ``ell`` twin for ``edge``/``ell``, a ``fused`` twin for
+        ``fused``, at the pinned pad width. Safe because the overflow
+        flag guards a full-width re-run in ``resolve``, and exact
+        because every warm-eligible mode has a schedule-free fixed
+        point. ``ell``/``fused`` twins share the plan's rebuilt blocks
+        and only narrow ``cap`` (the reference builds them anew; the
+        arrays are the same); ``edge``'s ELL twin is built once per
+        (cap, graph version). ``pallas`` keeps its own backend."""
+        strategy = self.config.strategy
+        if strategy not in ("edge", "ell", "fused"):
+            return self.backend
+        n = self.graph.n_nodes
+        cap = self._twin_cap_floor
+        while cap < repaired * 2:
+            cap *= 2
+        own_cap = self.config.frontier_cap or n
+        if cap >= n or (strategy in ("ell", "fused") and cap >= own_cap):
+            return self.backend
+        key = (cap, self._graph_version)
+        if self._repair_twin_key != key:
+            if strategy == "edge":
+                cfg = dataclasses.replace(self.config, strategy="ell",
+                                          frontier_cap=cap)
+                self._repair_twin = EllBackend.build(
+                    self.graph, cfg, max_deg=self._adjacency_width())
+            else:
+                self._repair_twin = dataclasses.replace(self.backend,
+                                                        cap=cap)
+            self._repair_twin_key = key
+        return self._repair_twin
+
+    def resolve(self, warm: bool = True) -> SingleSourceResult:
+        """Re-solve the plan's resident single-source problem against the
+        current (updated) weights. ``warm=True`` repairs from the
+        resident answer: changed edges seed a repair frontier (decreases
+        enter their new bucket directly; increases reset and re-seed the
+        predecessor-tree cone) and the bucket loop re-settles only what
+        the perturbation can reach — bitwise identical to the cold
+        solve. Updates outside the warm contract (``plan_repair``'s
+        refusals) re-solve cold; telemetry reports which path ran
+        (``warm``/``repaired``/``cone``)."""
+        if self._demoted is not None:
+            res = _mark_fallback(self._demoted.resolve(warm=warm))
+            self.host_syncs = self._demoted.host_syncs
+            return res
+        r = self._resident
+        if r is None:
+            raise ValueError(
+                "resolve() repairs the plan's resident state — solve a "
+                "SingleSource query first to establish it")
+        rep = None
+        if warm:
+            src, dst = self._host_topology()
+            rep, _ = plan_repair(
+                COOGraph(src, dst, self.graph.w, self.graph.n_nodes), r,
+                pred_mode=self.config.pred_mode)
+        if rep is not None and rep.repaired == 0:
+            # distance-neutral churn: distances stand. argmin preds are a
+            # function of (distances, *current* weights), and a tie can
+            # move without any distance moving, so the tree is recomputed
+            # against the updated graph; packed ties are covered by the
+            # repair's word-order seeds, and 'none' tracks no tree
+            dist, pred = r.dist, r.pred
+            if self.config.pred_mode == "argmin":
+                g = self.graph
+                pred = pred_argmin(dist, g.src, g.dst, g.w, r.source,
+                                   n=g.n_nodes)
+            self._remember(r.source, dist, pred, r.overflow)
+            self.host_syncs = 0
+            return SingleSourceResult(dist, pred, Telemetry(
+                0, 0, False, warm=True, repaired=0, cone=0))
+        if rep is not None:
+            tent0 = torch.from_numpy(rep.tent0).to(self.device)
+            explored0 = torch.from_numpy(rep.explored0).to(self.device)
+            backend = self._warm_backend(rep.repaired)
+            out = self._run_warm(backend, tent0, explored0)
+            syncs = out.host_syncs
+            if backend is not self.backend and out.overflow:
+                # the repair cascade outgrew the capped twin: re-run the
+                # same warm state full-width (the cap moves time, never
+                # answers) and escalate the floor for later repairs
+                self._twin_cap_floor = min(backend.cap * 4,
+                                           self.graph.n_nodes)
+                out = self._run_warm(self.backend, tent0, explored0)
+                syncs += out.host_syncs
+            tel = Telemetry(out.outer_iters, out.inner_iters, out.overflow,
+                            warm=True, repaired=rep.repaired, cone=rep.cone)
+        else:
+            out = self._run1(self.backend, r.source)
+            syncs = out.host_syncs
+            tel = Telemetry(out.outer_iters, out.inner_iters, out.overflow)
+        self.host_syncs = syncs
+        dist, pred = _finish_pred(out.tent, self.graph, r.source,
+                                  self.config)
+        self._remember(r.source, dist, pred, out.overflow)
+        return SingleSourceResult(dist, pred, tel)
+
+    def _remember(self, source: int, dist, pred, overflow: bool) -> None:
+        """Keep the answer resident. Device copies of ``dist``/``pred``
+        (a caller may write into the tensors it got back); the weight
+        tensor is held as is, since updates never write it."""
+        self._resident = Resident(int(source), dist.clone(), pred.clone(),
+                                  self.graph.w, bool(overflow))
 
     def explain(self) -> dict:
-        """Plan provenance: the operating point, and whether the overflow
-        fallback has demoted the plan. Landmarks, tuning and dynamic
-        residency are not ported (ROADMAP Queue 1 items 10, 11, 9), so
+        """Plan provenance: the operating point, whether the overflow
+        fallback has demoted the plan, and the resident source. Landmarks
+        and tuning are not ported (ROADMAP Queue 1 items 10, 11), so
         their fields are ``None``."""
         cfg = self.config
         return {
@@ -247,7 +453,8 @@ class Plan:
             "landmarks": None,
             "tuning_source": None,
             "fallback_taken": self._demoted is not None,
-            "resident_source": None,
+            "resident_source": (None if self._resident is None
+                                else self._resident.source),
         }
 
     def _dispatch(self, query: Query) -> Result:
@@ -271,8 +478,10 @@ class Plan:
 
     def _single(self, q: SingleSource) -> SingleSourceResult:
         src = _check_vertex("source", q.source, self.graph.n_nodes)
-        return SingleSourceResult(*self._finish(self._run1(self.backend, src),
-                                                src))
+        out = self._run1(self.backend, src)
+        dist, pred, tel = self._finish(out, src)
+        self._remember(src, dist, pred, out.overflow)    # residency
+        return SingleSourceResult(dist, pred, tel)
 
     def _multi(self, q: MultiSource) -> MultiSourceResult:
         host = np.asarray(q.sources, np.int64)

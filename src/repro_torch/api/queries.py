@@ -1,6 +1,6 @@
 """The query algebra and typed results of the Query/Plan façade — a copy
-of ``repro.api.queries`` (plain dataclasses). In the port's current
-slice, ``Plan.solve`` answers ``SingleSource``; the other kinds raise.
+of ``repro.api.queries`` (plain dataclasses). ``Plan.solve`` answers
+every kind; ``PointToPoint``'s landmark modes are not ported yet.
 
 A query names *what* to compute against a planned graph; the ``Plan``
 (engine.py) decides *how* — which pre-lowered solve loop runs and

@@ -1,7 +1,8 @@
 """Single-device Δ-stepping SSSP engine of the PyTorch port (counterpart
 of ``repro.core.delta_stepping``: the cold single-source, batched,
-point-to-point and bounded drivers, for the bucket loop and for the
-frontier-policy loop).
+point-to-point and bounded drivers and the warm-start driver of the
+dynamic repair path, for the bucket loop and for the frontier-policy
+loop).
 
 The paper's shared-memory mechanisms map onto tensor dataflow as in the
 reference: the dense bucket array (C1) is a full scan of
@@ -223,6 +224,20 @@ def _run_many_vmapped(backend: RelaxBackend, sources, *, n: int,
     return ManyOut(tent, outer, inner, over.cpu(), syncs + 1)
 
 
+def _run_one_warm(backend: RelaxBackend, tent0, explored0, *, n: int,
+                  packed: bool, device) -> RunOut:
+    """Warm-start solve loop (the dynamic repair path, DESIGN.md §11):
+    the bucket loop entered with a *repaired* state instead of the
+    all-INF cold one. ``tent0`` are upper-bound tent words (dist, or
+    packed (dist, pred)); ``explored0`` holds the tent value each vertex
+    last relaxed its edges at (its old settled distance), so exactly the
+    vertices whose tent the repair improved or reset satisfy ``tent <
+    explored`` and re-enter their buckets, and the unsettled-only
+    next-bucket scan skips every bucket the repair never touched."""
+    return _run_backend(backend, None, n=n, packed=packed, device=device,
+                        init=(tent0, explored0))
+
+
 def _run_one_p2p(backend: RelaxBackend, source: int, target: int, *, n: int,
                  packed: bool, device) -> RunOut:
     """Point-to-point solve with early exit (Kainer & Träff 2019,
@@ -274,12 +289,12 @@ def _or(over, o):
     return over if o is None else over | o
 
 
-def _run_backend(backend: RelaxBackend, source: int, *, n: int, packed: bool,
-                 device, stop=None) -> RunOut:
-    """Outer/inner Δ-stepping loop (paper Alg. 1) over one backend, cold
-    start. Same op sequence on the same states as the reference's
-    ``_run_backend`` with no ``init``/``inner_stop`` hook, so tent words
-    and counters are bitwise the reference's.
+def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
+                 packed: bool, device, stop=None, init=None) -> RunOut:
+    """Outer/inner Δ-stepping loop (paper Alg. 1) over one backend. Same
+    op sequence on the same states as the reference's ``_run_backend``
+    with no ``inner_stop`` hook, so tent words and counters are bitwise
+    the reference's.
 
     ``stop`` is the optional early-exit predicate ``(tent, explored,
     next_bucket) -> device bool`` checked between buckets, as the
@@ -288,9 +303,19 @@ def _run_backend(backend: RelaxBackend, source: int, *, n: int, packed: bool,
     the same transfer as the flag the loop reads there anyway (the
     priming scan's, or the fused loop's first step's, before bucket 0;
     the next bucket after each bucket), so it adds no host
-    synchronisation. ``None`` keeps the full-solve loop unchanged."""
-    tent0 = tent = init_tent(n, source, packed, device)
-    explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
+    synchronisation. ``None`` keeps the full-solve loop unchanged.
+
+    ``init`` is an optional warm ``(tent0, explored0)`` state (the
+    dynamic repair path, DESIGN.md §11; ``source`` is then unused);
+    ``None`` is the cold all-INF start. Either way the loop starts at
+    bucket 0, and the host syncs stay ``2 * buckets + inner_iters +
+    1``."""
+    if init is None:
+        tent = init_tent(n, source, packed, device)
+        explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
+    else:
+        tent, explored = init
+    tent0 = tent
     over = torch.zeros((), dtype=torch.bool, device=device)
     fused = getattr(backend, "supports_fused_light", False)
     i, outer, inner, syncs = 0, 0, 0, 0
@@ -361,10 +386,11 @@ def _pending_min(d, explored):
     return torch.where(d < explored, d, _INF).min()
 
 
-def _run_policy(backend: RelaxBackend, policy, source: int, *, n: int,
-                packed: bool, device, stop=None) -> RunOut:
-    """Round loop generic over a ``core.policies`` policy, cold start —
-    the reference's ``_run_policy`` with no ``init``. Each round: the
+def _run_policy(backend: RelaxBackend, policy, source: Optional[int], *,
+                n: int, packed: bool, device, stop=None,
+                init=None) -> RunOut:
+    """Round loop generic over a ``core.policies`` policy — the
+    reference's ``_run_policy``. Each round: the
     policy threshold θ from the pending state, then a step of the
     value-closed frontier ``pending & (tent <= θ)``: mark it explored and
     sweep its full edge set (light phase, then heavy). A closure policy
@@ -373,10 +399,15 @@ def _run_policy(backend: RelaxBackend, policy, source: int, *, n: int,
 
     ``stop`` is an optional ``(tent, explored) -> device bool`` checked
     before each round, read in the same transfer as the round condition.
-    Host syncs: one per round condition, one per closure condition, one
-    for the overflow flag."""
-    tent = init_tent(n, source, packed, device)
-    explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
+    ``init`` is the warm ``(tent0, explored0)`` state of the dynamic
+    repair path (``None``: the cold start from ``source``). Host syncs:
+    one per round condition, one per closure condition, one for the
+    overflow flag."""
+    if init is None:
+        tent = init_tent(n, source, packed, device)
+        explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
+    else:
+        tent, explored = init
     over = torch.zeros((), dtype=torch.bool, device=device)
     zero_i = 0  # dummy bucket id: only the grid stencil reads it, and
     # grid plans refuse non-delta policies
@@ -444,6 +475,16 @@ def _run_policy_bounded(backend: RelaxBackend, source: int, radius: int, *,
 
     return _run_policy(backend, policy, source, n=n, packed=packed,
                        device=device, stop=stop)
+
+
+def _run_policy_warm(backend: RelaxBackend, tent0, explored0, *, policy,
+                     n: int, packed: bool, device) -> RunOut:
+    """Warm-start policy solve (DESIGN.md §11/§15): the policy round
+    loop entered with the repaired state. The repair only manufactures
+    ``tent < explored`` on the repair cone, and the pending rule is what
+    every policy selects from, so warm == cold holds per policy."""
+    return _run_policy(backend, policy, None, n=n, packed=packed,
+                       device=device, init=(tent0, explored0))
 
 
 # ---------------------------------------------------------------------------

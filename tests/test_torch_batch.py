@@ -259,10 +259,8 @@ def test_fallback_reanswers_and_demotes(strategy):
                                         int(jres.telemetry.inner_iters),
                                         bool(jres.telemetry.overflow))
     ours, ref = plan.explain(), jplan.explain()
-    # dynamic residency is not ported (ROADMAP Queue 1 item 9)
-    assert ours.pop("resident_source") is None
-    assert ref.pop("resident_source") == 0
-    assert ours["fallback_taken"] and ours == ref
+    assert ours["fallback_taken"] and ours["resident_source"] == 0
+    assert ours == ref
     # demoted: later queries answer full-width directly
     res2 = plan.solve(MultiSource([0, 1]))
     jres2 = jplan.solve(JMultiSource([0, 1]))

@@ -337,12 +337,13 @@ def test_grid_refusals_match_reference():
         assert info.value.reason == "grid_costs"
     with pytest.raises(UpdateRefused, match="grid_costs"):
         plan.solve(UpdateBatch([0], [5]))
-    # other strategies ignore the mask, as in the reference
+    # other strategies ignore the mask, as in the reference, and take
+    # weight updates
     edge = Engine(g, DeltaConfig(delta=13), free_mask=free,
                   device="cpu").plan()
     assert not isinstance(edge.backend, GridPallasBackend)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        edge.update([0], [5])
+    assert edge.update([0], [5]) is edge
+    assert int(edge.graph.w[0]) == 5
 
 
 # ---------------------------------------------------------------- launcher

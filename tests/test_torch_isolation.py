@@ -5,10 +5,10 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (tuning, the landmark modes, dynamic updates, the
-  sharded strategies and the deprecated solver shims; the batched
-  queries and the frontier policies are ported); the launcher runs end
-  to end on the CPU with --verify.
+  ROADMAP item (tuning, the landmark modes, the sharded strategies and
+  the deprecated solver shims; the batched queries, the frontier
+  policies and dynamic updates are ported); the launcher runs end to
+  end on the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -50,6 +50,7 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/kernels/grid_relax/ops.py",
                  "src/repro_torch/core/grid.py",
                  "src/repro_torch/core/policies.py",
+                 "src/repro_torch/dynamic/repair.py",
                  "src/repro_torch/api/engine.py", "chip_smoke.py"):
         assert must in names
 
@@ -92,11 +93,10 @@ def test_unported_parts_raise_with_roadmap_item():
     for policy in ("delta", "rho", "radius"):
         plan = Engine(g, DeltaConfig(delta=5, policy=policy),
                       device="cpu").plan()
-        with pytest.raises(NotImplementedError, match="item 9"):
-            plan.solve(UpdateBatch([0], [3]))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            plan.update([0], [3])
-        # ported: the batched queries, under every policy
+        # ported: dynamic updates, the batched queries, under every
+        # policy
+        plan.solve(SingleSource(0))
+        assert plan.solve(UpdateBatch([0], [3])).telemetry.warm
         plan.solve(MultiSource([0, 1]))
         plan.solve(ManyToMany([0], [3]))
         with pytest.raises(ValueError, match="out of range"):

@@ -330,3 +330,121 @@ def test_capped_plan_and_fallback_on_cuda_equal_cpu(cuda, strategy):
         assert gpu.explain()["fallback_taken"]
         full = _delta_launches(strategy, *sums(res))
         assert n_fb == [a + b for a, b in zip(n_raw, full)]
+
+
+@pytest.mark.cuda
+def test_ell_relax_at_pinned_width_matches_twin(cuda):
+    """The dynamic path's rebuilds pad both ELL blocks to the full
+    adjacency degree, wider than the tight light width: the kernel
+    against its twin on the light block at that width."""
+    from repro_torch.core.backends import _ell_blocks
+    from repro_torch.graphs import watts_strogatz
+    g = watts_strogatz(20_000, 10, 0.05, seed=6)
+    deg = int(np.bincount(g.src.numpy(), minlength=g.n_nodes).max())
+    light, _ = _ell_blocks(g, 10, deg)
+    tight, _ = _ell_blocks(g, 10)
+    assert light.max_deg == deg > tight.max_deg
+    rng = np.random.default_rng(6)
+    dist = torch.from_numpy(_tent(rng, g.n_nodes)).to(cuda)
+    w = light.w.to(cuda)
+    for k in (1, 777, 4096):
+        fidx = np.full(4096, g.n_nodes, np.int32)
+        fidx[:k] = np.sort(rng.choice(g.n_nodes, size=k, replace=False))
+        fidx = torch.from_numpy(fidx).to(cuda)
+        out = ell_relax_cuda(fidx, dist, w)
+        torch.cuda.synchronize()
+        _equal([out], [ell_relax_ref(fidx, dist, w)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("population", [40, 64, 5000])
+def test_frontier_relax_small_cap_over_large_n_matches_twin(cuda,
+                                                            population):
+    """The fused repair twin's shape: cap 64 over n = 120 000, with a
+    bucket population below, at and above the cap (overflow)."""
+    s, cap, delta, i = 120_000, 64, 10, 3
+    rng = np.random.default_rng(population)
+    ell = csr_to_ell(coo_to_csr(random_graph(s, s * 8, seed=5))).to(cuda)
+    dist = np.full(s, INF, np.int32)
+    dist[rng.choice(s, size=s // 2, replace=False)] = rng.integers(
+        40, 400, size=s // 2)
+    members = rng.choice(s, size=population, replace=False)
+    dist[members] = rng.integers(i * delta, (i + 1) * delta,
+                                 size=population)
+    explored = np.where(rng.random(s) < 0.5, dist, INF).astype(np.int32)
+    explored[members] = INF
+    d = torch.from_numpy(dist).to(cuda)
+    e = torch.from_numpy(explored).to(cuda)
+    kw = dict(delta=delta, cap=cap, base=0, sent=s)
+    out = frontier_relax_cuda(d, e, i, ell.nbr, ell.w, **kw)
+    torch.cuda.synchronize()
+    assert int(out[3]) >= population
+    assert (int(out[3]) > cap) == (population > cap)
+    _equal(out, frontier_relax_ref(d, e, i, ell.nbr, ell.w, **kw))
+
+
+def _warm_runs(plan, q):
+    """Solve ``q`` (an ``UpdateBatch``) on ``plan`` and return its answer
+    with ``warm``/``repaired``/``cone``, the launches it made and each
+    warm run's (backend cap, buckets, inner_iters, overflow)."""
+    runs = []
+    orig = plan._run_warm
+
+    def run(backend, tent0, explored0):
+        out = orig(backend, tent0, explored0)
+        runs.append((backend.cap, out.outer_iters, out.inner_iters,
+                     out.overflow))
+        return out
+
+    plan._run_warm = run
+    try:
+        counters = (bucket_scan_cuda, ell_relax_cuda, frontier_relax_cuda)
+        before = [fn.launches for fn in counters]
+        r = plan.solve(q)
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+    finally:
+        plan._run_warm = orig
+    t = r.telemetry
+    ans = ([x.cpu().tolist() for x in (r.dist, r.pred)],
+           [t.buckets, t.inner_iters, t.overflow, t.warm, t.repaired,
+            t.cone])
+    return ans, launched, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pred_mode", ["argmin", "packed"])
+@pytest.mark.parametrize("strategy", ["pallas", "fused"])
+def test_warm_update_batch_on_cuda_equals_cpu(cuda, strategy, pred_mode):
+    """Stacked ``UpdateBatch`` re-solves on the card equal the same plan's
+    on the CPU (answers, counters, ``warm``/``repaired``/``cone``, and the
+    warm runs made: ``pallas`` on its rebuilt backend, ``fused`` on a
+    capped fused twin, re-run full-width if it overflows), and each warm
+    run launches the kernels by its own counters' equations."""
+    from repro_torch.api import Engine, SingleSource, UpdateBatch
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import watts_strogatz
+    g = watts_strogatz(3000, 10, 0.05, seed=4)
+    cfg = DeltaConfig(delta=10, strategy=strategy, pred_mode=pred_mode)
+    gpu = Engine(g, cfg, device=cuda).plan()
+    cpu = Engine(g, cfg, device="cpu").plan()
+    assert _answer(gpu, SingleSource(0)) == _answer(cpu, SingleSource(0))
+    rng = np.random.default_rng(8)
+    w = g.w.numpy().copy()
+    repaired = []
+    for k in (6, 60, 600):                 # the first batch is a no-op
+        ids = rng.choice(w.shape[0], size=k, replace=False)
+        neww = np.clip(w[ids] + rng.integers(-5, 6, size=k), 1, 20)
+        w[ids] = neww
+        ans, launched, runs = _warm_runs(gpu, UpdateBatch(ids, neww))
+        cans, _, cruns = _warm_runs(cpu, UpdateBatch(ids, neww))
+        assert ans == cans and runs == cruns
+        assert ans[1][3] and bool(runs) == (ans[1][4] > 0)
+        repaired.append(ans[1][4])
+        if strategy == "fused" and runs:
+            assert runs[0][0] < g.n_nodes          # the capped twin
+        want = [0, 0, 0]
+        for _, b, inner, _ in runs:
+            for j, v in enumerate(_delta_launches(strategy, b, inner)):
+                want[j] += v
+        assert launched == want
+    assert repaired[0] == 0 and min(repaired[1:]) > 0
