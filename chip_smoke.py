@@ -11,8 +11,11 @@
    main path's shapes — mid-solve ``tent``/``explored`` states recorded
    from a solve of the full-width graph below — and on edge cases: a
    length that is not a multiple of the block size, ``cap`` below the
-   frontier population, all-INF input, sentinel ``fidx`` and a
-   zero-width ELL block.
+   frontier population, all-INF input, sentinel ``fidx``, a
+   zero-width ELL block, ``bucket_scan`` on int32 input over the whole
+   range with negative buckets and buckets past int32, views 4 bytes
+   past 16-byte alignment (the scalar paths of ``bucket_scan`` and
+   ``ell_relax``) and n = 0.
 3. The main path at full width: ``watts_strogatz(1_000_000, 20, 1e-2)``
    (20 M directed edges, weights 1..20), Δ = 10, source 0, solved
    through ``Engine(...).plan().solve(SingleSource(0))`` on CUDA with
@@ -59,11 +62,15 @@
    launches. Per kernel at the main path's shapes: device time per
    wrapper call and its twin's, from CUDA events around back-to-back
    calls that the host queues during a device-side spin (so no host
-   time enters the window); ``cold_ms``, CUDA events around each call
-   after a 128 MiB write that empties the L2 and a device-side spin in
-   which the host queues the call (both outside the timed window); the
+   time enters the window); ``wrapper_ms``, the same calls back to back
+   with the host's launch time in them; ``cold_ms``, CUDA events around
+   each call after a 128 MiB write that empties the L2 and a
+   device-side spin in which the host queues the call (both outside the
+   timed window); the
    profiler's breakdown by kernel where it kept a record of every
-   launch (it loses records of windows a few ms long); on the game-map path
+   launch (it loses records of windows a few ms long), where a
+   ``bucket_scan`` or ``ell_relax`` call must show exactly one device
+   operation, its kernel, or the run fails; on the game-map path
    ``in_solve_ms``, the profiled solve's device time of the kernel over
    its launches (null where the profiler dropped a record); and its
    bound (the bytes this input needs ÷ 3.35 TB/s, or its integer
@@ -175,6 +182,9 @@ KERNEL_SYMBOL = {"bucket_scan": "bucket_scan_kernel",
                  "ell_relax": "ell_relax_kernel",
                  "frontier_relax": "fr_flags_kernel",
                  "grid_relax": "grid_relax_kernel"}
+# wrappers whose call is one device operation, their kernel: a profile
+# that kept every launch's record and shows another kernel fails the run
+ONE_KERNEL = ("bucket_scan", "ell_relax")
 INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
 # the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
@@ -1569,8 +1579,34 @@ def main() -> int:
     same(torch, frontier_relax_cuda(tr, er, 3, nbr0, w0, **kw0), twin0)
     same(torch, frontier_relax(tr, er, 3, nbr0, w0, **kw0), twin0)
     torch.cuda.synchronize()
+    # the range form of bucket_scan: int32 tent over the whole range,
+    # negative buckets and buckets whose range passes int32, a view 4
+    # bytes past 16-byte alignment (scalar path), n = 0; ell_relax on a
+    # w_ell view 4 bytes past 16-byte alignment (scalar walk)
+    full = torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=ragged + 1, dtype=np.int64).astype(np.int32)
+    ).to(cuda)
+    full[::7] = INF
+    for delta in (1, 7, 2**30):
+        for i in (-3, 0, INF // delta, -(2**31) // delta):
+            for a, b in ((full[:-1], er), (full[1:], tr), (tr, full[1:])):
+                same(torch, bucket_scan_cuda(a, b, i, delta=delta),
+                     bucket_scan_ref(a, b, i, delta=delta))
+    torch.cuda.synchronize()
+    empty = bucket_scan_cuda(tr[:0], er[:0], 0, delta=DELTA)
+    check(empty[0].shape == (0,) and not bool(empty[1])
+          and int(empty[2]) == INF, "bucket_scan on n = 0")
+    shifted = torch.empty(w_ell.numel() + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(w_ell.shape)
+    shifted.copy_(w_ell)
+    same(torch, (ell_relax_cuda(fidx, dist, shifted),),
+         (ell_relax_ref(fidx, dist, shifted),))
+    del full, shifted
+    torch.cuda.synchronize()
     log("[kernel] edge cases equal to the twins: ragged length, cap < "
-        "population, all-INF, sentinel fidx, zero-width ELL block")
+        "population, all-INF, sentinel fidx, zero-width ELL block, full "
+        "int32 range with negative and past-int32 buckets, unaligned "
+        "views, n = 0")
 
     # -- 3. main path -------------------------------------------------------
     counters = {"bucket_scan": bucket_scan_cuda, "ell_relax": ell_relax_cuda,
@@ -1731,8 +1767,12 @@ def main() -> int:
     def entry(name, source, replaces, make):
         """One kernels-line entry. ``make(args, kw, size)`` turns a
         recorded input into ``(kernel_fn, twin_fn, nbytes, ops, err,
-        iters)``; every path with a recorded input of the kernel is timed
-        on it (its largest frontier in that path's run). ``ms`` and
+        iters, yardstick)``; every path with a recorded input of the
+        kernel is timed on it (its largest frontier in that path's run).
+        ``yardstick`` is None or ``(what, fn)``: a PyTorch call that moves
+        part of the kernel's bytes without computing its function, timed
+        as ``ms`` is (``yardstick_ms``), to show what the card does with
+        those bytes alone. ``ms`` and
         ``plain_ms`` are CUDA-event device times of back-to-back calls
         queued during a spin (``queued_ms``); ``wrapper_ms`` the same
         calls without the spin (host launch time included); ``cold_ms``
@@ -1744,7 +1784,8 @@ def main() -> int:
         for path, recs in records.items():
             if name not in recs:
                 continue
-            kernel_fn, twin_fn, nbytes, ops, err, iters = make(*recs[name])
+            kernel_fn, twin_fn, nbytes, ops, err, iters, yard = make(
+                *recs[name])
             twin_iters = max(1, iters // 4)
             wrapper_ms = timed_ms(torch, kernel_fn, iters)
             ms, ahead = queued_ms(torch, kernel_fn, iters, wrapper_ms)
@@ -1754,8 +1795,15 @@ def main() -> int:
                 torch, twin_fn, twin_iters,
                 timed_ms(torch, twin_fn, twin_iters))
             cold = cold_ms(torch, kernel_fn, iters, scratch)
+            yard_ms = None
+            if yard is not None:
+                yard_ms, _ = queued_ms(torch, yard[1], iters,
+                                       timed_ms(torch, yard[1], iters))
             kern, _, seen = profiled(torch, kernel_fn, iters, counter)
             kept, n_launch = seen[name]
+            check(name not in ONE_KERNEL or kept < n_launch or len(kern) == 1,
+                  f"{name} ({path}): a call runs {len(kern)} device "
+                  f"operations, not one: {', '.join(kern)}")
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / ALU_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
@@ -1768,10 +1816,13 @@ def main() -> int:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "max_abs_err": err, "wrapper_ms": wrapper_ms,
                 "cold_ms": cold, "bytes": nbytes, "ops": ops}
+            if yard is not None:
+                paths[path]["yardstick_ms"] = yard_ms
             if path == "gamemap":     # None: the profiler dropped records
                 paths[path]["in_solve_ms"] = in_solve[name]
             log(f"[time] kernel {name} ({path}): {ms:.4f} ms/launch (CUDA "
-                f"events, calls queued; back to back {wrapper_ms:.4f} ms; "
+                f"events, calls queued; wrapper_ms {wrapper_ms:.4f}, back "
+                f"to back with the host's launch time; "
                 f"L2 cold {cold:.4f} ms"
                 + (f"; in the solve {in_solve[name]:.4f} ms"
                    if paths[path].get("in_solve_ms") is not None else "")
@@ -1781,7 +1832,9 @@ def main() -> int:
                 + f", bound {bound:.4f} ms ({nbytes} bytes, {ops} ops), "
                 f"launches {by_path[path][name]}; the profiler kept "
                 f"{kept} records of {n_launch} launches"
-                + ("" if kept == n_launch else ": no breakdown"))
+                + ("" if kept == n_launch else ": no breakdown")
+                + ("" if yard is None else
+                   f"; yardstick {yard[0]}: {yard_ms:.4f} ms"))
             for kname, kms in (sorted(kern.items(), key=lambda kv: -kv[1])
                                if kept == n_launch else ()):
                 log(f"[time]   {kms:.4f} ms  {kname[:100]}")
@@ -1812,7 +1865,9 @@ def main() -> int:
                 lambda: bucket_scan_ref(t_, e_, i_, delta=delta),
                 9 * n + 8, 8 * n,
                 same(torch, bucket_scan_cuda(t_, e_, i_, delta=delta),
-                     bucket_scan_ref(t_, e_, i_, delta=delta)), 40)
+                     bucket_scan_ref(t_, e_, i_, delta=delta)), 40,
+                ("torch.lt(tent, explored), its bytes without the "
+                 "reduction", lambda: torch.lt(t_, e_)))
 
     entry("bucket_scan", "src/repro_torch/csrc/bucket_scan.cu",
           "src/repro/kernels/bucket_scan/bucket_scan.py:36",
@@ -1820,12 +1875,15 @@ def main() -> int:
 
     def relax_case(fidx, dist, w_ell, m):
         cap, dd = fidx.shape[0], w_ell.shape[1]
+        filled = torch.empty((cap, dd), dtype=torch.int32, device=cuda)
         return (lambda: ell_relax_cuda(fidx, dist, w_ell),
                 lambda: ell_relax_ref(fidx, dist, w_ell),
                 4 * cap + 4 * m + 4 * dd * (m + int(m < cap)) + 4 * cap * dd,
                 4 * cap * dd,
                 same(torch, (ell_relax_cuda(fidx, dist, w_ell),),
-                     (ell_relax_ref(fidx, dist, w_ell),)), 20)
+                     (ell_relax_ref(fidx, dist, w_ell),)), 20,
+                ("fill_ of the [cap, D] output, its writes alone",
+                 lambda: filled.fill_(INF)))
 
     entry("ell_relax", "src/repro_torch/csrc/ell_relax.cu",
           "src/repro/kernels/ell_relax/ell_relax.py:29",
@@ -1841,7 +1899,7 @@ def main() -> int:
                 + 8 * dd * (filled + int(filled < cap)) + 12,
                 8 * d.shape[0] + 2 * cap * dd,
                 same(torch, run_fr(args, kw, frontier_relax_cuda),
-                     run_fr(args, kw, frontier_relax_ref)), 20)
+                     run_fr(args, kw, frontier_relax_ref)), 20, None)
 
     entry("frontier_relax", "src/repro_torch/csrc/frontier_relax.cu",
           "src/repro/kernels/frontier_relax/frontier_relax.py:57", fr_case)
@@ -1855,7 +1913,7 @@ def main() -> int:
                 lambda: grid_relax_ref(t_, f_, i_, **kw),
                 9 * hw, hw * (3 + 3 * moves + 2),
                 same(torch, (grid_relax_cuda(t_, f_, i_, **kw),),
-                     (grid_relax_ref(t_, f_, i_, **kw),)), 40)
+                     (grid_relax_ref(t_, f_, i_, **kw),)), 40, None)
 
     entry("grid_relax", "src/repro_torch/csrc/grid_relax.cu",
           "src/repro/kernels/grid_relax/grid_relax.py:45", grid_case)

@@ -14,6 +14,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,8 +40,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argtypes of every C entry point: a pointer or the stream is c_void_p,
 # a 32-bit int c_int, a 64-bit count c_longlong
 SIGNATURES = {
-    "bucket_scan_launch": (_P, _P, _LL, _I, _I, _P, _P, _P, _P),
-    "ell_relax_launch": (_P, _P, _P, _I, _LL, _I, _P, _P),
+    "bucket_scan_launch": (_P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _P),
+    "bucket_scan_scratch_ints": (),
+    "ell_relax_launch": (_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P,
+                         _P),
     "frontier_relax_launch": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
                               _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "grid_relax_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -114,6 +118,8 @@ def load() -> KernelBuild:
     """Build the library if this source hash has none yet, load it once
     per process, and declare every entry point's argument types."""
     global _loaded
+    if _loaded is not None:        # the launchers' per-call path
+        return _loaded
     with _lock:
         if _loaded is not None:
             return _loaded
@@ -156,6 +162,14 @@ def require_cuda_int32(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: no-op
+    where it already is, which spares the launchers' per-call path."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream_of(device: torch.device) -> int:

@@ -27,7 +27,10 @@ from repro.kernels.frontier_relax import (
     frontier_relax_ref as j_frontier_relax_ref,
 )
 from repro_torch.kernels.bucket_scan import bucket_scan, bucket_scan_ref
+from repro_torch.kernels.bucket_scan.bucket_scan import (scan_range,
+                                                         scan_vector_path)
 from repro_torch.kernels.ell_relax import ell_relax, ell_relax_ref
+from repro_torch.kernels.ell_relax.ell_relax import relax_layout
 from repro_torch.kernels.frontier_relax import (
     compact_ref,
     frontier_relax,
@@ -94,7 +97,143 @@ def test_bucket_scan_all_inf():
                                       interpret=True))
 
 
+def _full_range_case(seed, n=4000):
+    """tent/explored over the whole int32 range: INF, INF - 1, negatives,
+    small values around 0 and ``t == e``."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+    e = rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+    t[rng.random(n) < 0.1] = INF
+    t[rng.random(n) < 0.05] = INF - 1
+    e[rng.random(n) < 0.3] = INF
+    small = rng.random(n) < 0.3
+    t[small] = rng.integers(-60, 60, size=int(small.sum()))
+    same = rng.random(n) < 0.1
+    e[same] = t[same]
+    return t.astype(np.int32), e.astype(np.int32)
+
+
+def _range_rule(tent, explored, bucket_i, delta):
+    """The CUDA kernel's arithmetic on the CPU: the frontier is ``lo <= t
+    < hi & t < e`` and the next bucket ``floor(min t / delta)`` over ``t
+    >= hi & t < e``, with ``[lo, hi)`` from the launcher's
+    ``scan_range``."""
+    lo, hi = scan_range(bucket_i, delta)
+    t, e = tent.astype(np.int64), explored.astype(np.int64)
+    frontier = (t >= lo) & (t < hi) & (t < e)
+    cand = t[(t >= hi) & (t < e)]
+    nxt = int(cand.min()) // delta if cand.size else 2**31 - 1
+    return frontier, frontier.any(), np.int32(nxt)
+
+
+@pytest.mark.parametrize("delta", [1, 7, 2**30])
+@pytest.mark.parametrize("bucket", [-3, 0, 1, 5, "past_int32"])
+def test_bucket_scan_range_rule_matches_twin(bucket, delta):
+    """The identities the CUDA kernel rests on, over the whole int32
+    range of ``tent``: the range rule gives the twin's frontier, flag and
+    next bucket bitwise, for negative buckets and for the last bucket,
+    whose ``(i + 1) * delta`` is past int32."""
+    i = INF // delta if bucket == "past_int32" else bucket
+    if bucket == "past_int32":
+        assert (i + 1) * delta > INF
+    t, e = _full_range_case(delta % 1000 + 17 * (i % 97))
+    twin = bucket_scan_ref(torch.from_numpy(t), torch.from_numpy(e), i,
+                           delta=delta)
+    _eq(twin, _range_rule(t, e, i, delta), f"i={i} delta={delta}")
+
+
+@pytest.mark.parametrize("bucket_i,delta", [(-3, 7), (INF // 7, 7)])
+def test_bucket_scan_range_rule_matches_jax_reference(bucket_i, delta):
+    t, e = _full_range_case(bucket_i % 1000)
+    _eq([torch.from_numpy(np.asarray(x))
+         for x in _range_rule(t, e, bucket_i, delta)],
+        j_bucket_scan_ref(jnp.asarray(t), jnp.asarray(e), bucket_i,
+                          delta=delta), "jax ref")
+
+
+def test_scan_range_clamps_and_refuses():
+    assert scan_range(3, 10) == (30, 40)
+    assert scan_range(-3, 10) == (-30, -20)
+    assert scan_range(INF, 1) == (INF, INF)            # (i + 1) past int32
+    assert scan_range(-2**31, 2) == (-2**31, -2**31)   # i * delta below it
+    assert scan_range(2**40, 3) == (INF, INF)
+    for bad in (0, -1, 2**31):
+        with pytest.raises(ValueError):
+            scan_range(0, bad)
+
+
+def test_scan_vector_path_needs_aligned_inputs():
+    buf = torch.zeros(64, dtype=torch.int32)
+    flags = torch.zeros(64, dtype=torch.bool)
+    assert buf.data_ptr() % 16 == 0
+    assert scan_vector_path(buf, buf, flags)
+    assert scan_vector_path(buf[4:], buf[8:], flags[4:])
+    assert not scan_vector_path(buf[1:], buf, flags)
+    assert not scan_vector_path(buf, buf[3:], flags)
+    assert not scan_vector_path(buf, buf, flags[1:])
+
+
 # ----------------------------------------------------------------- ell_relax
+def _walk(cap, units, batch, split_log2, q, rem):
+    """The kernel's walk over the output units of every chunk of 32
+    rows, on the host: each of a chunk's ``2**split_log2`` warps starts
+    its lanes at unit ``32 * part + lane`` and advances their (row,
+    unit) by ``(q, rem)`` per step. Asserts each lane's (row, unit) is
+    ``divmod(p, units)`` of its output unit ``p`` and returns how often
+    each unit was written."""
+    split = 1 << split_log2
+    step = 32 * split
+    counts = {}
+    for row0 in range(0, cap, 32):
+        total = min(cap - row0, 32) * units
+        for part in range(split):
+            for lane in range(32):
+                r, k = divmod(32 * part + lane, units)
+                for base in range(32 * part, total, step * batch):
+                    for s in range(batch):
+                        p = base + s * step + lane
+                        if p < total:
+                            assert (r, k) == divmod(p, units)
+                            key = row0 * units + p
+                            counts[key] = counts.get(key, 0) + 1
+                        k, r = k + rem, r + q
+                        if k >= units:
+                            k, r = k - units, r + 1
+    return counts
+
+
+@pytest.mark.parametrize("width", [0, 1, 3, 4, 19, 24, 28, 33, 64])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("cap", [37, 4096, 200_000])
+def test_relax_layout_walk_covers_each_output_once(width, offset, cap):
+    """The launcher's ``(vec, units, batch, split_log2, q, rem)``: the
+    vector walk exactly where ``D % 4 == 0`` and ``w_ell`` starts 16-byte
+    aligned; batches of 4 steps where a chunk takes 4 or more; warps
+    split a chunk only while the chunks are too few to fill the card;
+    and the kernel's stepping writes every output unit exactly once, at
+    its own (row, unit)."""
+    flat = torch.zeros(8 * width + offset, dtype=torch.int32)
+    w_ell = flat[offset:].view(8, width)       # offset 1: 4 bytes past 16
+    vec, units, batch, split_log2, q, rem = relax_layout(w_ell, cap)
+    aligned = w_ell.data_ptr() % 16 == 0
+    assert vec == int(width > 0 and width % 4 == 0 and aligned)
+    assert units == (width // 4 if vec else width)
+    if units == 0:
+        return
+    assert batch == (4 if units >= 4 else 1)
+    chunks = -(-cap // 32)
+    split = 1 << split_log2
+    assert split == 1 or (chunks * split // 2 < 132 * 32
+                          and batch * split // 2 < units)
+    assert q * units + rem == 32 * split and 0 <= rem < units
+    if cap <= 4096:
+        counts = _walk(cap, units, batch, split_log2, q, rem)
+        assert sorted(counts) == list(range(cap * units))
+        assert set(counts.values()) == {1}
+    else:                      # enough chunks to fill the card
+        assert split == 1
+
+
 @pytest.mark.parametrize("n,deg,cap", [(16, 4, 8), (64, 7, 64), (33, 1, 16),
                                        (60, 16, 40)])
 @pytest.mark.parametrize("backend", ["pallas", "pallas_row"])

@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.graphs import coo_to_csr, csr_to_ell, random_graph
 from repro_torch.kernels.bucket_scan import bucket_scan_cuda, bucket_scan_ref
+from repro_torch.kernels.bucket_scan.bucket_scan import scan_vector_path
 from repro_torch.kernels.ell_relax import ell_relax_cuda, ell_relax_ref
+from repro_torch.kernels.ell_relax.ell_relax import relax_layout
 from repro_torch.kernels.frontier_relax import (
     frontier_relax_cuda,
     frontier_relax_ref,
@@ -57,6 +59,176 @@ def test_bucket_scan_kernel_matches_twin(cuda, n, seed):
     allinf = torch.full((n,), INF, dtype=torch.int32, device=cuda)
     _equal(bucket_scan_cuda(allinf, allinf, 0, delta=3),
            bucket_scan_ref(allinf, allinf, 0, delta=3))
+
+
+def _full_range(rng, n):
+    """int32 tent/explored over the whole range: INF, INF - 1, negatives,
+    small values around 0 and ``t == e``."""
+    t = rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+    e = rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+    t[rng.random(n) < 0.1] = INF
+    t[rng.random(n) < 0.05] = INF - 1
+    e[rng.random(n) < 0.3] = INF
+    small = rng.random(n) < 0.3
+    t[small] = rng.integers(-60, 60, size=int(small.sum()))
+    same = rng.random(n) < 0.1
+    e[same] = t[same]
+    return t.astype(np.int32), e.astype(np.int32)
+
+
+def _scan_twin(tent, explored, i, delta):
+    """The twin's answer; (empty, False, IMAX) for n = 0, where the
+    twin's min has nothing to reduce."""
+    if tent.shape[0] == 0:
+        return (torch.zeros(0, dtype=torch.bool), torch.tensor(False),
+                torch.tensor(INF, dtype=torch.int32))
+    return bucket_scan_ref(tent, explored, i, delta=delta)
+
+
+def _buckets(delta):
+    """Negative, small and huge int32 buckets: the last one's ``(i + 1) *
+    delta`` and the one past it are beyond int32, the first's ``i *
+    delta`` below it."""
+    return [i for i in (-3, 0, 1, 5, INF // delta, INF // delta + 1,
+                        -(2**31) // delta, -(2**31) // delta - 1)
+            if -2**31 <= i <= INF]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 4097, 1_000_003])
+def test_bucket_scan_kernel_full_int32_range(cuda, n):
+    """Every int32 ``tent`` (negative included) and every int32 bucket,
+    on the vector path (aligned) and the scalar one (a view 4 bytes past
+    16-byte alignment, and inputs of different alignment)."""
+    rng = np.random.default_rng(n)
+    t, e = _full_range(rng, n + 1)
+    tent = torch.from_numpy(t).to(cuda)
+    explored = torch.from_numpy(e).to(cuda)
+    views = [(tent[:n], explored[:n]), (tent[1:], explored[1:]),
+             (tent[:n], explored[1:])]
+    flags = torch.empty(n, dtype=torch.bool, device=cuda)
+    assert scan_vector_path(*views[0], flags)
+    if n:
+        assert not scan_vector_path(*views[1], flags)
+        assert not scan_vector_path(*views[2], flags)
+    for tt, ee in views:
+        for delta in (1, 7, 2**30):
+            for i in _buckets(delta):
+                out = bucket_scan_cuda(tt, ee, i, delta=delta)
+                torch.cuda.synchronize()
+                _equal(out, _scan_twin(tt, ee, i, delta))
+
+
+@pytest.mark.cuda
+def test_bucket_scan_back_to_back_sizes_and_streams(cuda):
+    """Launches of different sizes queued back to back on one stream, and
+    interleaved on two streams, each equal to the twin: the kernel's
+    cross-block ticket is reset by every launch and is not shared by two
+    streams."""
+    rng = np.random.default_rng(11)
+    sizes = (1_000_003, 5, 300_001, 0, 4096, 2_000_000, 1)
+    cases = []
+    for n in sizes:
+        t, e = _full_range(rng, n)
+        cases.append((torch.from_numpy(t).to(cuda),
+                      torch.from_numpy(e).to(cuda), int(rng.integers(-3, 9)),
+                      int(rng.choice([1, 7, 64]))))
+    outs = [bucket_scan_cuda(t, e, i, delta=d) for t, e, i, d in cases]
+    torch.cuda.synchronize()
+    for (t, e, i, d), out in zip(cases, outs):
+        _equal(out, _scan_twin(t, e, i, d))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for rep in range(4):
+        for k, (t, e, i, d) in enumerate(cases):
+            with torch.cuda.stream(streams[(k + rep) % 2]):
+                outs.append(bucket_scan_cuda(t, e, i, delta=d))
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        t, e, i, d = cases[k % len(cases)]
+        _equal(out, _scan_twin(t, e, i, d))
+
+
+def _device_ops(fn):
+    """Names of the device operations (kernels, copies, fills) of one
+    call of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bucket_scan", "ell_relax"])
+def test_one_call_is_one_device_kernel(cuda, kernel):
+    """A call of the wrapper runs exactly one device operation, its own
+    kernel: no fill before it and no compare after it. The profiler may
+    lose records of so short a window, so the call is profiled until a
+    profile holds the kernel's record, and every profile that holds it
+    must hold nothing else."""
+    rng = np.random.default_rng(3)
+    n = 1_000_000
+    tent = torch.from_numpy(_tent(rng, n)).to(cuda)
+    explored = torch.from_numpy(_tent(rng, n)).to(cuda)
+    w = torch.from_numpy(rng.integers(1, 20, size=(n + 1, 19))
+                         .astype(np.int32)).to(cuda)
+    w[n] = INF
+    fidx = torch.full((n,), n, dtype=torch.int32, device=cuda)
+    fidx[:1000] = torch.arange(1000, dtype=torch.int32, device=cuda)
+    call = {"bucket_scan": lambda: bucket_scan_cuda(tent, explored, 2,
+                                                    delta=7),
+            "ell_relax": lambda: ell_relax_cuda(fidx, tent, w)}[kernel]
+    call()                    # warm-up: the build and the scan's scratch
+    torch.cuda.synchronize()
+    kept = 0
+    for _ in range(10):
+        names = _device_ops(call)
+        if any(f"{kernel}_kernel" in name for name in names):
+            assert len(names) == 1, names
+            kept += 1
+    assert kept > 0, "no profile kept the kernel's record"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 4, 28, 33, 64])
+@pytest.mark.parametrize("rows", ["mixed", "all_padding", "no_padding"])
+@pytest.mark.parametrize("cap", [2048, 300_001])
+def test_ell_relax_kernel_widths_and_padding(cuda, width, rows, cap):
+    """Both walks of the kernel (16-byte units for D % 4 == 0 on aligned
+    blocks, 4-byte words otherwise and for a ``w_ell`` view 4 bytes past
+    16-byte alignment), with warps splitting a chunk (2048 rows) and not
+    (300 001, a ragged last chunk), all-padding and padding-free
+    ``fidx``, distances whose sum with a weight wraps past int32."""
+    n = 3001
+    rng = np.random.default_rng(width * 10 + len(rows) + cap)
+    w = rng.integers(1, 40, size=(n + 1, width)).astype(np.int64)
+    w[rng.random(w.shape) < 0.2] = INF
+    w[rng.random(w.shape) < 0.05] = INF - 3
+    w[n] = INF
+    d = _tent(rng, n).astype(np.int64)
+    d[rng.random(n) < 0.05] = INF - 2
+    dist = torch.from_numpy(d.astype(np.int32)).to(cuda)
+    if rows == "all_padding":
+        f = np.full(cap, n, np.int32)
+    elif rows == "no_padding":
+        f = rng.integers(0, n, size=cap).astype(np.int32)
+    else:
+        f = np.full(cap, n, np.int32)
+        f[:cap * 3 // 4] = rng.integers(0, n, size=cap * 3 // 4)
+    fidx = torch.from_numpy(f).to(cuda)
+    w_ell = torch.from_numpy(w.astype(np.int32)).to(cuda)
+    shifted = _offset_copy(w_ell, 1)
+    assert relax_layout(w_ell, cap)[0] == int(width % 4 == 0)
+    assert relax_layout(shifted, cap)[0] == 0
+    for ww in (w_ell, shifted):
+        got = ell_relax_cuda(fidx, dist, ww)
+        torch.cuda.synchronize()
+        _equal([got], [ell_relax_ref(fidx, dist, ww)])
+        if rows == "all_padding":
+            assert bool((got == INF).all())
 
 
 @pytest.mark.cuda
