@@ -15,7 +15,10 @@
    zero-width ELL block, ``bucket_scan`` on int32 input over the whole
    range with negative buckets and buckets past int32, views 4 bytes
    past 16-byte alignment (the scalar paths of ``bucket_scan`` and
-   ``ell_relax``) and n = 0.
+   ``ell_relax``) and n = 0; ``frontier_relax`` over the same int32
+   range and buckets, on an unaligned view (its scalar scan), with a
+   shard's ``base``/``sent``, and in calls of different S and ``cap``
+   queued back to back on one stream.
 3. The main path at full width: ``watts_strogatz(1_000_000, 20, 1e-2)``
    (20 M directed edges, weights 1..20), Δ = 10, source 0, solved
    through ``Engine(...).plan().solve(SingleSource(0))`` on CUDA with
@@ -68,9 +71,12 @@
    device-side spin in which the host queues the call (both outside the
    timed window); the
    profiler's breakdown by kernel where it kept a record of every
-   launch (it loses records of windows a few ms long), where a
-   ``bucket_scan`` or ``ell_relax`` call must show exactly one device
-   operation, its kernel, or the run fails; on the game-map path
+   launch (it loses records of windows a few ms long), where a call
+   must show only its wrapper's own kernels, one each (one for
+   ``bucket_scan`` and ``ell_relax``, two for ``frontier_relax``), or
+   the run fails; a yardstick per path (a PyTorch call moving part of
+   the kernel's bytes: ``fill_`` of the outputs for ``ell_relax`` and
+   ``frontier_relax``); on the game-map path
    ``in_solve_ms``, the profiled solve's device time of the kernel over
    its launches (null where the profiler dropped a record); and its
    bound (the bytes this input needs ÷ 3.35 TB/s, or its integer
@@ -177,14 +183,18 @@ FLUSH_BYTES = 128 * 2**20
 QUEUE_CYCLES = 1_000_000
 # H100 SXM boost clock, to size a spin in which the host queues calls
 CLOCK_HZ = 1.98e9
-# the one CUDA kernel each counted wrapper launches once per call
+# the CUDA kernel each counted wrapper launches first, once per call
 KERNEL_SYMBOL = {"bucket_scan": "bucket_scan_kernel",
                  "ell_relax": "ell_relax_kernel",
-                 "frontier_relax": "fr_flags_kernel",
+                 "frontier_relax": "frontier_scan_kernel",
                  "grid_relax": "grid_relax_kernel"}
-# wrappers whose call is one device operation, their kernel: a profile
-# that kept every launch's record and shows another kernel fails the run
-ONE_KERNEL = ("bucket_scan", "ell_relax")
+# a call's whole device work, per checked wrapper: its own kernels, one
+# launch each. A profile that kept every launch's record and shows more
+# device operations per call, or another one, fails the run.
+OWN_KERNELS = {"bucket_scan": ("bucket_scan_kernel",),
+               "ell_relax": ("ell_relax_kernel",),
+               "frontier_relax": ("frontier_scan_kernel",
+                                  "frontier_gather_kernel")}
 INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
 # the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
@@ -1601,12 +1611,39 @@ def main() -> int:
     shifted.copy_(w_ell)
     same(torch, (ell_relax_cuda(fidx, dist, shifted),),
          (ell_relax_ref(fidx, dist, shifted),))
-    del full, shifted
+    torch.cuda.synchronize()
+    # the range form of frontier_relax: the same int32 range and
+    # buckets, the scalar scan of a view 4 bytes past 16-byte alignment,
+    # a shard's base and sentinel; then calls of different S and cap
+    # queued back to back on one stream (its scratch grows between
+    # them), each held against the twin after they all ran
+    for delta in (1, 7, 2**30):
+        for i in (-3, 0, INF // delta, -(2**31) // delta):
+            for a, b in ((full[:-1], er), (full[1:], tr)):
+                for cap in (4096, ragged):
+                    kw_f = dict(delta=delta, cap=cap, base=3 * ragged,
+                                sent=4 * ragged)
+                    same(torch,
+                         frontier_relax_cuda(a, b, i, rg.nbr, rg.w, **kw_f),
+                         frontier_relax_ref(a, b, i, rg.nbr, rg.w, **kw_f))
+    torch.cuda.synchronize()
+    queued = []
+    for s_, cap in ((ragged, 4096), (5, 5), (300_001, 300_001), (1025, 1),
+                    (70_001, 64), (ragged, ragged)):
+        args_f = (full[1:s_ + 1], tr[:s_], 3, rg.nbr[:s_ + 1], rg.w[:s_ + 1])
+        queued.append((args_f, cap, frontier_relax_cuda(
+            *args_f, delta=7, cap=cap)))
+    torch.cuda.synchronize()
+    for args_f, cap, out in queued:
+        same(torch, out, frontier_relax_ref(*args_f, delta=7, cap=cap))
+    del full, shifted, queued
     torch.cuda.synchronize()
     log("[kernel] edge cases equal to the twins: ragged length, cap < "
         "population, all-INF, sentinel fidx, zero-width ELL block, full "
-        "int32 range with negative and past-int32 buckets, unaligned "
-        "views, n = 0")
+        "int32 range with negative and past-int32 buckets (bucket_scan, "
+        "frontier_relax), unaligned views, n = 0, a shard's base and "
+        "sentinel, frontier_relax calls of different S and cap back to "
+        "back")
 
     # -- 3. main path -------------------------------------------------------
     counters = {"bucket_scan": bucket_scan_cuda, "ell_relax": ell_relax_cuda,
@@ -1801,9 +1838,13 @@ def main() -> int:
                                        timed_ms(torch, yard[1], iters))
             kern, _, seen = profiled(torch, kernel_fn, iters, counter)
             kept, n_launch = seen[name]
-            check(name not in ONE_KERNEL or kept < n_launch or len(kern) == 1,
-                  f"{name} ({path}): a call runs {len(kern)} device "
-                  f"operations, not one: {', '.join(kern)}")
+            own = OWN_KERNELS.get(name)
+            check(own is None or kept < n_launch or (
+                kept == n_launch and len(kern) <= len(own)
+                and all(any(k in kname for k in own) for kname in kern)),
+                f"{name} ({path}): a call runs {len(kern)} device "
+                f"operations ({kept} records of {n_launch} launches), not "
+                f"at most {len(own or ())} of its own: {', '.join(kern)}")
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / ALU_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
@@ -1893,13 +1934,17 @@ def main() -> int:
         d, w = args[0], args[4]
         cap, dd = kw["cap"], w.shape[1]
         filled = min(pop, cap)
+        out_n = torch.empty((cap, dd), dtype=torch.int32, device=cuda)
+        out_w = torch.empty_like(out_n)
         return (lambda: run_fr(args, kw, frontier_relax_cuda),
                 lambda: run_fr(args, kw, frontier_relax_ref),
                 8 * d.shape[0] + 4 * cap + 8 * cap * dd
                 + 8 * dd * (filled + int(filled < cap)) + 12,
                 8 * d.shape[0] + 2 * cap * dd,
                 same(torch, run_fr(args, kw, frontier_relax_cuda),
-                     run_fr(args, kw, frontier_relax_ref)), 20, None)
+                     run_fr(args, kw, frontier_relax_ref)), 20,
+                ("fill_ of the two [cap, D] outputs, their writes alone",
+                 lambda: (out_n.fill_(INF), out_w.fill_(INF))))
 
     entry("frontier_relax", "src/repro_torch/csrc/frontier_relax.cu",
           "src/repro/kernels/frontier_relax/frontier_relax.py:57", fr_case)

@@ -58,13 +58,6 @@
 // scratch ints: the ticket, the OR accumulator, the min accumulator
 #define BS_SCRATCH_INTS 3
 
-__device__ __forceinline__ void bs_one(int t, int e, int lo, int hi,
-                                       unsigned &f, int &m) {
-  const bool unsettled = t < e;
-  f = unsettled && t >= lo && t < hi;
-  if (unsettled && t >= hi) m = min(m, t);
-}
-
 // m as an order-reversing unsigned key whose identity (m = INF) is 0, so
 // a zeroed accumulator holds the identity and atomicMax takes the min
 __device__ __forceinline__ unsigned bs_key(int m) {
@@ -107,10 +100,10 @@ __global__ void __launch_bounds__(BS_THREADS)
         const long long v = v0 + u * stride;
         if (v < nv) {
           unsigned f0, f1, f2, f3;
-          bs_one(t[u].x, e[u].x, lo, hi, f0, m);
-          bs_one(t[u].y, e[u].y, lo, hi, f1, m);
-          bs_one(t[u].z, e[u].z, lo, hi, f2, m);
-          bs_one(t[u].w, e[u].w, lo, hi, f3, m);
+          rt_range_one(t[u].x, e[u].x, lo, hi, f0, m);
+          rt_range_one(t[u].y, e[u].y, lo, hi, f1, m);
+          rt_range_one(t[u].z, e[u].z, lo, hi, f2, m);
+          rt_range_one(t[u].w, e[u].w, lo, hi, f3, m);
           const unsigned word = f0 | (f1 << 8) | (f2 << 16) | (f3 << 24);
           f4[v] = word;  // little-endian: element 4v + j in byte j
           any |= word != 0;
@@ -121,7 +114,7 @@ __global__ void __launch_bounds__(BS_THREADS)
   }
   for (long long v = scalar_from + gtid; v < n; v += stride) {
     unsigned f;
-    bs_one(tent[v], explored[v], lo, hi, f, m);
+    rt_range_one(tent[v], explored[v], lo, hi, f, m);
     frontier[v] = (uint8_t)f;
     any |= (int)f;
   }
@@ -163,10 +156,7 @@ __global__ void __launch_bounds__(BS_THREADS)
   m = bs_unkey(cuda::atomic_ref<unsigned, cuda::thread_scope_device>(
                    *acc_key).load(cuda::memory_order_relaxed));
   int nb = RT_IMAX;
-  if (m < RT_INF32) {  // floor(m / delta), delta >= 1
-    nb = m / delta;
-    if (nb * delta != m && m < 0) --nb;
-  }
+  if (m < RT_INF32) nb = rt_floor_div(m, delta);
   *any_out = (uint8_t)(any != 0);
   *next_out = nb;
   *acc_any = 0;  // ready for the next launch on this stream

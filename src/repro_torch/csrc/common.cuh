@@ -1,9 +1,12 @@
 // Shared device helpers of the port's hand-written Hopper kernels.
 //
-// The bucket formulas of paper C1 (frontier membership and next-bucket
-// candidate), and the block-wide reductions and scans the kernels are
-// built from. Tent values are non-negative int32 with INF32 = 2^31 - 1;
-// the division runs on finite values only.
+// The bucket formulas of paper C1 as a range of values (frontier
+// membership and next-bucket candidate), and the warp- and block-wide
+// scans the kernels are built from. Tent values are any int32, with
+// INF32 = 2^31 - 1; the launchers pass bucket i as the half-open value
+// range [lo, hi) clamped to [INT32_MIN, INF] (scan_range in
+// kernels/bucket_scan/bucket_scan.py), so no element is divided: the one
+// division of a call floors the minimum candidate (rt_floor_div).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,47 +16,23 @@
 #define RT_IMAX 0x7fffffff
 #define RT_FULL 0xffffffffu
 
-// frontier[v] = t < INF & t / delta == i & t < e
-// next-bucket candidate = t / delta where that bucket is > i and t < e,
-// else IMAX (the identity of the min)
-__device__ __forceinline__ void rt_scan_formulas(int t, int e, int i,
-                                                 int delta, bool &f,
-                                                 int &nb) {
-  const bool fin = t < RT_INF32;
-  const int b = fin ? t / delta : RT_IMAX;
+// f = t < e & lo <= t < hi (frontier of the bucket); m takes t where
+// t < e & t >= hi (a candidate for the next bucket). As e <= INF, t < e
+// implies t < INF.
+__device__ __forceinline__ void rt_range_one(int t, int e, int lo, int hi,
+                                             unsigned &f, int &m) {
   const bool unsettled = t < e;
-  f = fin && b == i && unsettled;
-  nb = (fin && b > i && unsettled) ? b : RT_IMAX;
+  f = unsettled && t >= lo && t < hi;
+  if (unsettled && t >= hi) m = min(m, t);
 }
 
-// OR and MIN over the block, then one atomic of each into the outputs.
-// Both are order-free, so concurrent blocks give the same bits as the
-// TPU's sequential grid. Call once per kernel, from every thread;
-// blockDim.x must be a multiple of 32.
-__device__ __forceinline__ void rt_block_or_min(int any, int nb, int *any_out,
-                                                int *next_out) {
-  __shared__ int s_any[32];
-  __shared__ int s_nb[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  any = (int)__reduce_or_sync(RT_FULL, (unsigned)any);
-  nb = __reduce_min_sync(RT_FULL, nb);
-  if (lane == 0) {
-    s_any[warp] = any;
-    s_nb[warp] = nb;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    any = lane < nw ? s_any[lane] : 0;
-    nb = lane < nw ? s_nb[lane] : RT_IMAX;
-    any = (int)__reduce_or_sync(RT_FULL, (unsigned)any);
-    nb = __reduce_min_sync(RT_FULL, nb);
-    if (lane == 0) {
-      if (any) atomicOr(any_out, 1);
-      if (nb < RT_IMAX) atomicMin(next_out, nb);
-    }
-  }
+// floor(m / delta) for delta >= 1, negative m included (the reference's
+// //); floor division is monotone, so this of the minimum candidate is
+// the minimum of the candidates' buckets
+__device__ __forceinline__ int rt_floor_div(int m, int delta) {
+  int q = m / delta;
+  if (q * delta != m && m < 0) --q;
+  return q;
 }
 
 // Inclusive prefix sum over the 32 lanes of a warp.

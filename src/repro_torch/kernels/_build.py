@@ -45,8 +45,9 @@ SIGNATURES = {
     "bucket_scan_scratch_ints": (),
     "ell_relax_launch": (_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P,
                          _P),
-    "frontier_relax_launch": (_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I,
-                              _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "frontier_relax_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _P),
     "grid_relax_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                           _P),
 }

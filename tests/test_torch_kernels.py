@@ -36,6 +36,19 @@ from repro_torch.kernels.frontier_relax import (
     frontier_relax,
     frontier_relax_ref,
 )
+from repro_torch.kernels.frontier_relax.frontier_relax import (
+    GATHER_MAX_BLOCKS,
+    PAD_MAX_BLOCKS,
+    PAD_STEPS,
+    SCAN_MAX_BLOCKS,
+    SUB,
+    THREADS,
+    TILE,
+    gather_layout,
+    n_tiles,
+    scratch_ints,
+    vector_path,
+)
 
 INF = int(jst.INF32)
 
@@ -336,6 +349,194 @@ def test_frontier_relax_all_inf_and_large_ragged():
     assert int(count) == 0 and not bool(any_) and int(nxt) == 2**31 - 1
     assert bool((fidx == s).all()) and bool((rows_n == s).all())
     assert bool((rows_w == INF).all())
+
+
+@pytest.mark.parametrize("s,tiles", [(0, 1), (1, 1), (5, 1), (1023, 1),
+                                     (1024, 1), (1025, 2), (70_001, 69),
+                                     (1_000_003, 977), (2**31 - 1, 2**21)])
+def test_frontier_relax_tiles_and_scratch(s, tiles):
+    """A tile per 1024 vertices (one for S = 0); the scratch holds the
+    ticket (and 3 unused ints), a minimum per scan block, the tile
+    populations and offsets, each rounded up to 4 so that every region
+    starts 16-byte aligned, and per tile 4 sub-tile populations and 32
+    ballot words."""
+    assert TILE == 1024 and TILE // SUB == 4 and n_tiles(s) == tiles
+    padded = -(-tiles // 4) * 4
+    assert (4 + SCAN_MAX_BLOCKS) % 4 == 0 and padded % 4 == 0
+    assert scratch_ints(s) == 4 + SCAN_MAX_BLOCKS + 2 * padded \
+        + (4 + TILE // 32) * tiles
+
+
+@pytest.mark.parametrize("s,cap,d", [(1, 1, 0), (5, 5, 3), (1025, 64, 19),
+                                     (1_000_000, 1_000_000, 19),
+                                     (1_000_000, 4096, 19),
+                                     (1_000_000, 64, 4),
+                                     (120_000, 262_144, 24),
+                                     (70_001, 70_001, 33),
+                                     (1_000_003, 1_000_003, 1),
+                                     (1000, 1_953_000, 1100)])
+def test_frontier_relax_gather_layout(s, cap, d):
+    """The scan takes a block per tile up to 4 per SM; the gather a
+    block per sub-tile of 256 vertices up to 4 per SM; the padding
+    blocks cover the most padding a call can have (``cap`` ids and
+    ``cap * D / 4`` 16-byte units per block) at ``PAD_STEPS`` units a
+    thread, no block more than needed, at most 2 per SM; a frontier row
+    is owned by the least power-of-two group of lanes >= min(D, 32)."""
+    tiles, scan_blocks, gather_blocks, pad_blocks, group_log2 = \
+        gather_layout(s, cap, d)
+    assert tiles == n_tiles(s)
+    assert scan_blocks == min(tiles, SCAN_MAX_BLOCKS) and scan_blocks >= 1
+    assert SUB == 256 and GATHER_MAX_BLOCKS == 132 * 4
+    assert PAD_MAX_BLOCKS == 132 * 2
+    assert gather_blocks == min(tiles * TILE // SUB, GATHER_MAX_BLOCKS)
+    units = max(cap, cap * d // 4)
+    per_block = THREADS * PAD_STEPS
+    assert 1 <= pad_blocks <= PAD_MAX_BLOCKS
+    assert pad_blocks == PAD_MAX_BLOCKS or pad_blocks * per_block >= units
+    assert pad_blocks == 1 or (pad_blocks - 1) * per_block < units
+    g = 1 << group_log2
+    assert g <= 32 and g >= min(d, 32) and (g == 1 or g // 2 < min(d, 32))
+
+
+def test_frontier_relax_vector_path_needs_aligned_inputs():
+    buf = torch.zeros(64, dtype=torch.int32)
+    assert buf.data_ptr() % 16 == 0
+    assert vector_path(buf, buf) and vector_path(buf[4:], buf[8:])
+    assert not vector_path(buf[1:], buf)
+    assert not vector_path(buf, buf[3:])
+
+
+def _pad_walk(filled, cap, d, pad_blocks):
+    """The padding blocks' walk over the words ``[filled * D, cap * D)``
+    of a ``[cap, D]`` output, on the host: thread ``t`` of ``T`` takes
+    the 16-byte units ``qa + t, qa + t + T, ...`` below ``qb``, starting
+    at column ``4 * q % D`` and advancing it by ``4 * T % D`` per step;
+    threads 0-3 of the first block take the words before unit ``qa``,
+    4-7 those from unit ``qb`` on. Asserts each unit's column is its
+    first word's and returns how often each word is written."""
+    T = pad_blocks * THREADS
+    wlo, whi = filled * d, cap * d
+    counts = {}
+    if wlo >= whi:
+        return counts
+    qa, qb = (wlo + 3) >> 2, whi >> 2
+    dk = 4 * T % d
+    for t in range(min(T, max(0, qb - qa))):
+        q = qa + t
+        k = 4 * q % d
+        while q < qb:
+            assert k == 4 * q % d
+            for w in range(4 * q, 4 * q + 4):
+                counts[w] = counts.get(w, 0) + 1
+            q, k = q + T, k + dk
+            if k >= d:
+                k -= d
+    for tid in range(8):
+        if tid < 4:
+            w, mine = wlo + tid, wlo + tid < min(4 * qa, whi)
+        else:
+            w = 4 * qb + tid - 4
+            mine = qa <= qb and w < whi
+        if mine:
+            counts[w] = counts.get(w, 0) + 1
+    return counts
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 19, 24, 33, 1100])
+@pytest.mark.parametrize("filled,cap", [(0, 1), (0, 37), (5, 37), (37, 37),
+                                        (1, 600), (599, 600), (234, 600)])
+def test_frontier_relax_padding_covers_each_word_once(d, filled, cap):
+    """The padding split of the gather kernel: the 16-byte units and
+    the head and tail words together write every padding word exactly
+    once and no frontier word, at the launcher's padding grid."""
+    pad_blocks = gather_layout(cap, cap, d)[3]
+    counts = _pad_walk(filled, cap, d, pad_blocks)
+    assert sorted(counts) == list(range(filled * d, cap * d))
+    assert set(counts.values()) <= {1}
+
+
+def _frontier_rule(dist, explored, bucket_i, nbr, w, *, delta, cap, base,
+                   sent):
+    """The two CUDA kernels' arithmetic on the host. Flags by the range
+    rule (``lo <= t < hi & t < e`` with ``[lo, hi)`` from
+    ``scan_range``), packed into ballot words of 32; tile populations
+    and their exclusive scan; a flag's slot is its tile's offset plus
+    the popcounts below it in its tile (a gather sub-tile's first slot
+    is its tile's offset plus the popcounts of the tile's words before
+    it); slots from ``min(count, cap)``
+    on hold ``sent`` and row S; ``next`` is ``floor(min t / delta)``
+    over ``t >= hi & t < e``."""
+    lo, hi = scan_range(bucket_i, delta)
+    s = dist.shape[0]
+    t, e = dist.astype(np.int64), explored.astype(np.int64)
+    flags = (t < e) & (t >= lo) & (t < hi)
+    tiles = n_tiles(s)
+    bits = np.zeros(tiles * TILE, np.int64)
+    bits[:s] = flags
+    words = (bits.reshape(-1, 32) << np.arange(32)).sum(1)
+    word_pop = np.array([bin(int(x)).count("1") for x in words])
+    tile_pop = word_pop.reshape(tiles, TILE // 32).sum(1)
+    tile_off = np.cumsum(tile_pop) - tile_pop
+    fidx = np.full(cap, sent, np.int64)
+    rows_n = np.broadcast_to(nbr[s], (cap, nbr.shape[1])).copy()
+    rows_w = np.broadcast_to(w[s], (cap, w.shape[1])).copy()
+    for v in np.flatnonzero(flags):
+        tile, word, bit = v // TILE, v // 32, v % 32
+        below = int(word_pop[tile * (TILE // 32):word].sum())
+        below += bin(int(words[word]) & ((1 << bit) - 1)).count("1")
+        slot = int(tile_off[tile]) + below
+        if slot < cap:
+            fidx[slot] = v + base
+            rows_n[slot], rows_w[slot] = nbr[v], w[v]
+    cand = t[(t < e) & (t >= hi)]
+    nxt = int(cand.min()) // delta if cand.size else 2**31 - 1
+    count = int(flags.sum())
+    return (fidx.astype(np.int32), rows_n, rows_w, np.int32(count),
+            np.bool_(count > 0), np.int32(nxt))
+
+
+def _fr_full_range(seed, s=2500, d=3):
+    t, e = _full_range_case(seed, s)
+    rng = np.random.default_rng(seed + 1)
+    nbr = rng.integers(-2**31, 2**31, size=(s + 1, d),
+                       dtype=np.int64).astype(np.int32)
+    w = rng.integers(-2**31, 2**31, size=(s + 1, d),
+                     dtype=np.int64).astype(np.int32)
+    return t, e, nbr, w
+
+
+@pytest.mark.parametrize("delta", [1, 7, 2**30])
+@pytest.mark.parametrize("bucket", [-3, 0, 5, "past_int32"])
+def test_frontier_relax_range_rule_matches_twin(bucket, delta):
+    """The identities the CUDA kernels rest on, over the whole int32
+    range of ``dist`` (INF, INF - 1, negatives, ``t == e``): the range
+    rule with the ballot-word compaction gives the twin's six outputs
+    bitwise, for negative buckets and for the last bucket, whose ``(i +
+    1) * delta`` is past int32; caps below, at and above the
+    population, ``base``/``sent`` of a shard, an arbitrary row S."""
+    i = INF // delta if bucket == "past_int32" else bucket
+    if bucket == "past_int32":
+        assert (i + 1) * delta > INF
+    t, e, nbr, w = _fr_full_range(delta % 1000 + 17 * (i % 97))
+    tt = [torch.from_numpy(a) for a in (t, e, nbr, w)]
+    pop = int(frontier_relax_ref(*tt[:2], i, *tt[2:], delta=delta,
+                                 cap=1)[3])
+    for cap, base, sent in ((1, 0, t.shape[0]), (max(pop, 1), 0, 2500),
+                            (pop + 40, 7000, 99), (2500, 1 << 20, 123)):
+        kw = dict(delta=delta, cap=cap, base=base, sent=sent)
+        _eq(frontier_relax_ref(*tt[:2], i, *tt[2:], **kw),
+            _frontier_rule(t, e, i, nbr, w, **kw), f"i={i} {kw}")
+
+
+@pytest.mark.parametrize("bucket_i,delta", [(-3, 7), (INF // 7, 7)])
+def test_frontier_relax_range_rule_matches_jax_reference(bucket_i, delta):
+    t, e, nbr, w = _fr_full_range(bucket_i % 1000)
+    kw = dict(delta=delta, cap=300, base=5, sent=2500)
+    _eq([torch.from_numpy(np.asarray(x))
+         for x in _frontier_rule(t, e, bucket_i, nbr, w, **kw)],
+        j_frontier_relax_ref(jnp.asarray(t), jnp.asarray(e), bucket_i,
+                             jnp.asarray(nbr), jnp.asarray(w), **kw),
+        "jax ref")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -19,6 +19,9 @@ from repro_torch.kernels.frontier_relax import (
     frontier_relax_cuda,
     frontier_relax_ref,
 )
+from repro_torch.kernels.frontier_relax.frontier_relax import (
+    vector_path as fr_vector_path,
+)
 from repro_torch.kernels.grid_relax import (grid_relax_cuda, grid_relax_ref,
                                             vector_path)
 
@@ -161,14 +164,23 @@ def _device_ops(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+# each wrapper's own device kernels: a call runs these and nothing else
+OWN_KERNELS = {"bucket_scan": ("bucket_scan_kernel",),
+               "ell_relax": ("ell_relax_kernel",),
+               "frontier_relax": ("frontier_scan_kernel",
+                                  "frontier_gather_kernel")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bucket_scan", "ell_relax"])
+@pytest.mark.parametrize("kernel", ["bucket_scan", "ell_relax",
+                                    "frontier_relax"])
 def test_one_call_is_one_device_kernel(cuda, kernel):
-    """A call of the wrapper runs exactly one device operation, its own
-    kernel: no fill before it and no compare after it. The profiler may
-    lose records of so short a window, so the call is profiled until a
-    profile holds the kernel's record, and every profile that holds it
-    must hold nothing else."""
+    """A call of the wrapper runs only its own kernels, one device
+    operation for ``bucket_scan`` and ``ell_relax``, at most two for
+    ``frontier_relax``: no fill before them and no compare after them.
+    The profiler may lose records of so short a window, so the call is
+    profiled until a profile holds the first kernel's record, and every
+    profile that holds it must hold nothing else."""
     rng = np.random.default_rng(3)
     n = 1_000_000
     tent = torch.from_numpy(_tent(rng, n)).to(cuda)
@@ -176,18 +188,25 @@ def test_one_call_is_one_device_kernel(cuda, kernel):
     w = torch.from_numpy(rng.integers(1, 20, size=(n + 1, 19))
                          .astype(np.int32)).to(cuda)
     w[n] = INF
+    nbr = torch.from_numpy(rng.integers(0, n, size=(n + 1, 19))
+                           .astype(np.int32)).to(cuda)
+    nbr[n] = n
     fidx = torch.full((n,), n, dtype=torch.int32, device=cuda)
     fidx[:1000] = torch.arange(1000, dtype=torch.int32, device=cuda)
     call = {"bucket_scan": lambda: bucket_scan_cuda(tent, explored, 2,
                                                     delta=7),
-            "ell_relax": lambda: ell_relax_cuda(fidx, tent, w)}[kernel]
-    call()                    # warm-up: the build and the scan's scratch
+            "ell_relax": lambda: ell_relax_cuda(fidx, tent, w),
+            "frontier_relax": lambda: frontier_relax_cuda(
+                tent, explored, 2, nbr, w, delta=7, cap=4096)}[kernel]
+    own = OWN_KERNELS[kernel]
+    call()                    # warm-up: the build and the scratch
     torch.cuda.synchronize()
     kept = 0
     for _ in range(10):
         names = _device_ops(call)
-        if any(f"{kernel}_kernel" in name for name in names):
-            assert len(names) == 1, names
+        if any(own[0] in name for name in names):
+            assert len(names) <= len(own), names
+            assert all(any(k in name for k in own) for name in names), names
             kept += 1
     assert kept > 0, "no profile kept the kernel's record"
 
@@ -271,6 +290,170 @@ def test_frontier_relax_kernel_matches_twin(cuda, s, deg, cap_frac, width):
     allinf = torch.full((s,), INF, dtype=torch.int32, device=cuda)
     _equal(frontier_relax_cuda(allinf, allinf, 0, nbr, w, delta=7, cap=cap),
            frontier_relax_ref(allinf, allinf, 0, nbr, w, delta=7, cap=cap))
+
+
+def _fr_block(s, d, seed):
+    """An ELL block int32[S + 1, D] pair of arbitrary values (row S too:
+    the kernel copies it, it assumes nothing of it), made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nbr = torch.randint(0, 2**31 - 1, (s + 1, d), generator=g,
+                        dtype=torch.int32, device="cuda")
+    w = torch.randint(-2**31, 2**31 - 1, (s + 1, d), generator=g,
+                      dtype=torch.int32, device="cuda")
+    return nbr, w
+
+
+def _fr_equal(dist, explored, i, nbr, w, **kw):
+    out = frontier_relax_cuda(dist, explored, i, nbr, w, **kw)
+    torch.cuda.synchronize()
+    _equal(out, frontier_relax_ref(dist, explored, i, nbr, w, **kw))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 1, 3, 4, 19, 24, 33])
+@pytest.mark.parametrize("s", [1, 5, 1023, 1024, 1025, 70_001, 1_000_003])
+def test_frontier_relax_kernel_sizes_widths_and_caps(cuda, s, d):
+    """Slices of one vertex to a ragged million, zero to 33 columns
+    (a group of 1, 4 and 32 lanes a row, two column steps at D = 33),
+    and caps of 1, 64, 4096 and S: below, at and above the population
+    (count untruncated), with an all-INF tent and ``base``/``sent`` of
+    a shard."""
+    rng = np.random.default_rng(s * 40 + d)
+    dist = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    explored = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    nbr, w = _fr_block(s, d, s + d)
+    allinf = torch.full((s,), INF, dtype=torch.int32, device=cuda)
+    for cap in (1, 64, 4096, s):
+        for i in (0, 3):
+            _fr_equal(dist, explored, i, nbr, w, delta=7, cap=cap)
+        _fr_equal(dist, explored, 3, nbr, w, delta=7, cap=cap,
+                  base=3 * s + 11, sent=5 * s)
+        out = _fr_equal(allinf, allinf, 0, nbr, w, delta=7, cap=cap)
+        assert int(out[3]) == 0 and int(out[5]) == INF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 1025, 1_000_003])
+def test_frontier_relax_kernel_full_int32_range(cuda, s):
+    """Every int32 ``dist`` (negative included) and every int32 bucket,
+    negative and past int32, on the vector scan (aligned) and the scalar
+    one (views 4 bytes past 16-byte alignment, and inputs of different
+    alignment)."""
+    rng = np.random.default_rng(s + 5)
+    t, e = _full_range(rng, s + 1)
+    tent = torch.from_numpy(t).to(cuda)
+    explored = torch.from_numpy(e).to(cuda)
+    nbr, w = _fr_block(s, 3, s)
+    views = [(tent[:s], explored[:s]), (tent[1:], explored[1:]),
+             (tent[:s], explored[1:])]
+    assert fr_vector_path(*views[0])
+    assert not fr_vector_path(*views[1]) and not fr_vector_path(*views[2])
+    for tt, ee in views:
+        for delta in (1, 7, 2**30):
+            for i in _buckets(delta):
+                for cap in (64, s):
+                    _fr_equal(tt, ee, i, nbr, w, delta=delta, cap=cap,
+                              base=1, sent=s + 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("population", [0, 1, 4095, 4096, 4097, 20_000])
+def test_frontier_relax_kernel_population_at_cap(cuda, population):
+    """A bucket population of 0, below, exactly at and above a cap of
+    4096 over 300 001 vertices, members spread over every tile."""
+    s, cap, delta, i = 300_001, 4096, 10, 3
+    rng = np.random.default_rng(population)
+    dist = np.full(s, INF, np.int32)
+    dist[rng.choice(s, size=s // 2, replace=False)] = rng.integers(
+        40, 400, size=s // 2)
+    members = rng.choice(s, size=population, replace=False)
+    dist[members] = rng.integers(i * delta, (i + 1) * delta,
+                                 size=population)
+    explored = np.where(rng.random(s) < 0.5, dist, INF).astype(np.int32)
+    explored[members] = INF
+    d = torch.from_numpy(dist).to(cuda)
+    e = torch.from_numpy(explored).to(cuda)
+    nbr, w = _fr_block(s, 19, population)
+    out = _fr_equal(d, e, i, nbr, w, delta=delta, cap=cap)
+    assert int(out[3]) == population and bool(out[4]) == (population > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1025, 1500])
+def test_frontier_relax_kernel_wide_rows(cuda, d):
+    """Rows wider than the padding's shared-memory stage (1024
+    columns): row S is read from device memory, and the column steps of
+    a row loop several times."""
+    s = 3000
+    rng = np.random.default_rng(d)
+    dist = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    explored = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    nbr, w = _fr_block(s, d, d)
+    for cap in (1, 64, s):
+        _fr_equal(dist, explored, 3, nbr, w, delta=7, cap=cap)
+
+
+@pytest.mark.cuda
+def test_frontier_relax_kernel_offsets_past_int32(cuda):
+    """``cap * D`` past 2**31 words (cap above S, so most slots are
+    padding): the 64-bit offsets of the row copy and of the padding."""
+    s, d = 1000, 1100
+    cap = 2**31 // d + 1000
+    assert cap * d > 2**31
+    rng = np.random.default_rng(2)
+    dist = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    explored = torch.from_numpy(_tent(rng, s, hi=60)).to(cuda)
+    nbr, w = _fr_block(s, d, 9)
+    out = frontier_relax_cuda(dist, explored, 3, nbr, w, delta=7, cap=cap)
+    torch.cuda.synchronize()
+    fidx, rows_n, rows_w, count, any_, nxt = out
+    n = int(count)
+    twin = frontier_relax_ref(dist, explored, 3, nbr, w, delta=7, cap=s)
+    _equal((fidx[:s], rows_n[:s], rows_w[:s], count, any_, nxt), twin)
+    assert 0 < n < s
+    assert bool((fidx[s:] == s).all())
+    for rows, block in ((rows_n, nbr), (rows_w, w)):
+        assert torch.equal(rows[-1], block[s]) and torch.equal(rows[s],
+                                                               block[s])
+        assert bool((rows[s:] == block[s]).all())
+    del out, fidx, rows_n, rows_w
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_frontier_relax_back_to_back_sizes_and_streams(cuda):
+    """Calls of different S and cap queued back to back on one stream
+    (the scratch grows between them), and interleaved on two streams,
+    each equal to the twin: the scan's ticket is reset by every call,
+    and no scratch is shared by two streams."""
+    rng = np.random.default_rng(13)
+    cases = []
+    for s, cap in ((1_000_003, 4096), (5, 5), (300_001, 300_001), (1, 1),
+                   (70_001, 64), (2_000_000, 2_000_000), (1025, 1)):
+        t, e = _full_range(rng, s)
+        nbr, w = _fr_block(s, 3, s)
+        cases.append((torch.from_numpy(t).to(cuda),
+                      torch.from_numpy(e).to(cuda), int(rng.integers(-3, 9)),
+                      nbr, w, dict(delta=int(rng.choice([1, 7, 64])),
+                                   cap=cap)))
+    torch.cuda.synchronize()
+    outs = [frontier_relax_cuda(t, e, i, nb, w, **kw)
+            for t, e, i, nb, w, kw in cases]
+    torch.cuda.synchronize()
+    for (t, e, i, nb, w, kw), out in zip(cases, outs):
+        _equal(out, frontier_relax_ref(t, e, i, nb, w, **kw))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for rep in range(3):
+        for k, (t, e, i, nb, w, kw) in enumerate(cases):
+            with torch.cuda.stream(streams[(k + rep) % 2]):
+                outs.append(frontier_relax_cuda(t, e, i, nb, w, **kw))
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        t, e, i, nb, w, kw = cases[k % len(cases)]
+        _equal(out, frontier_relax_ref(t, e, i, nb, w, **kw))
 
 
 def _grid_case(rng, shape):
