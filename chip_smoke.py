@@ -156,6 +156,37 @@
    timed. One profiled warm ``pallas`` batch. The counted runs join
    ``by_path`` as ``smallworld_warm`` and ``lattice_warm``.
 
+10. Landmark point-to-point queries (run after phase 7 and before phase
+   9, on plans of their own, so phase 3's scipy distances are the
+   oracle). On the 1 M-vertex small-world graph, a fresh ``edge`` plan
+   (Δ = 10): ``prepare_landmarks(k=4)`` (farthest, seed 0, tables in a
+   temporary store directory), timed and split into ``graph_stats``,
+   fingerprint, whash and selection + rows; one landmark's ``d_out`` and
+   ``d_in`` rows equal to scipy on the forward and the reversed edge
+   list; the all-light ELL blocks' host build, timed. ``early_exit``,
+   ``alt``, ``bidirectional`` and ``alt_bidirectional`` from source 0 to
+   the farthest vertex (largest finite distance, lowest id) and to the
+   vertex at the median finite distance (lowest id): distance equal to
+   scipy's, a valid path of that weight, ``host_syncs == 2 * buckets +
+   inner_iters + 1``, no overflow; wall times (median of 3 after one
+   warm-up to the far target, one run to the near one). One profiled
+   ``alt`` query: device busy time, idle share and the scatter's share,
+   with its records held against ``2 * (buckets + inner_iters) + 1``
+   (a compaction and a scatter-min per sweep, one scatter-min in pred
+   recovery). A second plan's ``prepare_landmarks`` hits the store
+   (timed; tables bitwise equal). Phase 9's update protocol at k =
+   20 000: an increase-only batch keeps the tables (``alt`` equal to
+   scipy on the updated weights), the raw batch (with decreases) drops
+   them under ``recompute`` and the next ``alt`` rebuilds them and
+   equals ``early_exit``; under ``on_update="refuse"`` a decreasing
+   batch raises ``LandmarkRefused(reason="landmarks_stale")`` with the
+   weights bitwise unchanged. On the 512 x 512 game map (Δ = 13) as a
+   grid plan, each landmark mode from the first to the last free cell:
+   distance equal to the grid plan's ``SingleSource``, a valid path. The
+   launch counters are set to 0 after the game map's reference solve
+   and read at the end of the phase: all four must read 0 (the landmark
+   solves run an all-light ``EllBackend``; no kernel is on their path).
+
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -217,6 +248,10 @@ SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
 DYN_TIMED_1PCT = ("edge", "pallas")
 LATTICE_SIDE, LATTICE_STRATEGIES = 1000, ("edge", "pallas", "fused")
+# phase 10: landmarks per plan, the update batch size (phase 9's
+# protocol), the point-to-point modes
+LANDMARK_K, LM_DYN_K = 4, 20_000
+LM_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
 
 
 def check(cond, what: str) -> None:
@@ -249,6 +284,18 @@ def timed_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def synced(torch, ms: dict, part: str, fn):
+    """``fn`` wrapped to add its wall time, ended by a synchronize, to
+    ``ms[part]``."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms[part] += (time.perf_counter() - t0) * 1e3
+        return out
+    return wrapped
 
 
 def cold_ms(torch, fn, iters: int, scratch) -> float:
@@ -299,11 +346,12 @@ def queued_ms(torch, fn, iters: int, per_call_ms: float):
 
 def profiled(torch, fn, iters: int = 1, counters=None):
     """Device time per call of ``fn`` by CUDA kernel name, in ms, from
-    ``torch.profiler``, the wall time per call of the profiled calls, and
+    ``torch.profiler``, the wall time per call of the profiled calls,
     per counted wrapper ``(records, launches)``: the profiler's records
     of the wrapper's kernel (``KERNEL_SYMBOL``) against the launches its
-    counter saw in the window. The profiler loses records of windows a
-    few ms long, so its times stand only where the two agree."""
+    counter saw in the window, and the records of every kernel name.
+    The profiler loses records of windows a few ms long, so its times
+    stand only where the records agree with the launches."""
     from torch.profiler import ProfilerActivity, profile
     counters = counters or {}
     fn()
@@ -316,17 +364,18 @@ def profiled(torch, fn, iters: int = 1, counters=None):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    kern, records = {}, dict.fromkeys(counters, 0)
+    kern, counts, records = {}, {}, dict.fromkeys(counters, 0)
     for e in prof.key_averages():
         dt = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
             kern[e.key] = kern.get(e.key, 0.0) + dt / 1e3 / iters
+            counts[e.key] = counts.get(e.key, 0) + e.count
             for k in counters:
                 if KERNEL_SYMBOL[k] in e.key:
                     records[k] += e.count
     seen = {k: (records[k], f.launches - before[k])
             for k, f in counters.items()}
-    return kern, wall, seen
+    return kern, wall, seen, counts
 
 
 def seen_line(seen) -> str:
@@ -697,7 +746,7 @@ def game_map_path(torch, np, cuda, counters):
         f"{lane1.best['grid_relax'][2]} cells")
 
     # -- 5h. where a grid solve's device time goes --------------------------
-    kern, wall, seen = profiled(
+    kern, wall, seen, _ = profiled(
         torch, lambda: plan.solve(SingleSource(src)), counters=counters)
     busy = sum(kern.values())
     log(f"[profile] gamemap/argmin: profiled solve {wall:.1f} ms, device "
@@ -1113,13 +1162,7 @@ class Split:
         self.runs = []
 
     def _timed(self, part, fn):
-        def wrapped(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            self.torch.cuda.synchronize()
-            self.ms[part] += (time.perf_counter() - t0) * 1e3
-            return out
-        return wrapped
+        return synced(self.torch, self.ms, part, fn)
 
     def _wrap_warm(self):
         real = self.plan._run_warm
@@ -1412,7 +1455,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
     plan = plans[("pallas", "argmin")]
     # B2, then A2, of the first k: both change weights the plan holds
     flip = iter([cycles[DYN_KS[0]][3], cycles[DYN_KS[0]][1]])
-    kern, wall, seen = profiled(torch, lambda: plan.solve(
+    kern, wall, seen, _ = profiled(torch, lambda: plan.solve(
         UpdateBatch(*next(flip))), counters=counters)
     busy = sum(kern.values())
     log(f"[profile] warm pallas k={DYN_KS[0]}: profiled solve {wall:.1f} ms "
@@ -1424,6 +1467,238 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
     log(f"[dyn] phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return launches_sw, launches_lat, {"smallworld_warm": sw_rec.best,
                                        "lattice_warm": lat_rec.best}
+
+
+class Timed:
+    """While active, replaces ``obj.name`` for each ``(obj, name)`` in
+    ``targets`` by a wrapper that adds its wall time, ended by a
+    synchronize, to ``ms[name]``."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.ms = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        self.real = [(obj, name, getattr(obj, name))
+                     for obj, name in self.targets]
+        for obj, name, fn in self.real:
+            setattr(obj, name, synced(self.torch, self.ms, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.real:
+            setattr(obj, name, fn)
+
+
+def landmark_path(torch, np, cuda, g, ref_dist, keyed, counters):
+    """Phase 10: landmark point-to-point queries at full width (see the
+    module note). The launch counters are set to 0 after the game map's
+    reference solve and read at the end: every landmark solve runs on an
+    all-light ``EllBackend`` and the ``edge`` plan's early exit on
+    tensor ops, so all four must read 0."""
+    import tempfile
+
+    import repro_torch.landmarks.alt as alt_mod
+    import repro_torch.tune.estimator as estimator
+    from repro_torch.api import (Engine, LandmarkRefused, PointToPoint,
+                                 SingleSource)
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import grid_map
+
+    t_phase = time.perf_counter()
+    n = g.n_nodes
+    fin = ref_dist < INF
+    far = int(np.flatnonzero(ref_dist == ref_dist[fin].max())[0])
+    median = np.sort(ref_dist[fin])[(int(fin.sum()) - 1) // 2]
+    near = int(np.flatnonzero(ref_dist == median)[0])
+    targets = {"far": far, "near": near}
+
+    # the game map's reference answer launches the grid kernels: it is
+    # solved before the counters are set to 0
+    gs, fs = grid_map(SMALL_SIDE, SMALL_SIDE, OBSTACLES, seed=0)
+    cells = np.flatnonzero(fs.ravel())
+    gsrc, gtgt = int(cells[0]), int(cells[-1])
+    gplan = Engine(gs, DeltaConfig(delta=GRID_DELTA, strategy="pallas",
+                                   pred_mode="argmin"), free_mask=fs,
+                   device=cuda).plan()
+    gdist = gplan.solve(SingleSource(gsrc)).dist.cpu().numpy()
+    gkeyed = dedup_min(gs.src.cpu().numpy(), gs.dst.cpu().numpy(),
+                       gs.w.cpu().numpy(), gs.n_nodes)
+
+    for fn in counters.values():
+        fn.launches = 0
+    cfg = DeltaConfig(delta=DELTA, strategy="edge", pred_mode="argmin")
+    plan = Engine(g, cfg, device=cuda).plan()
+    store = tempfile.TemporaryDirectory()
+
+    # -- 10a. tables: prepare_landmarks, split; one landmark's rows --------
+    split = Timed(torch, [(estimator, "graph_stats"),
+                          (estimator, "fingerprint"),
+                          (alt_mod, "graph_whash"),
+                          (alt_mod, "build_tables")])
+    with split:
+        t0 = time.perf_counter()
+        plan.prepare_landmarks(k=LANDMARK_K, store=store.name)
+        torch.cuda.synchronize()
+        t_prep = (time.perf_counter() - t0) * 1e3
+    tables = plan.landmark_tables
+    ms = split.ms
+    check(all(v > 0 for v in ms.values()), f"a part of prepare_landmarks "
+          f"was not timed ({ms})")
+    log(f"[landmarks] prepare_landmarks(k={LANDMARK_K}, farthest, seed 0) "
+        f"on edge: {t_prep:.1f} ms: graph_stats {ms['graph_stats']:.1f} + "
+        f"fingerprint {ms['fingerprint']:.1f}, whash "
+        f"{ms['graph_whash']:.1f}, selection + rows "
+        f"{ms['build_tables']:.1f} ms (the rows' whash inside it once "
+        f"more); landmarks {tables.landmarks.tolist()}, fingerprint "
+        f"{tables.fingerprint}")
+    lm = int(tables.landmarks[0])
+    d_out, _ = oracle_dist(g, lm)
+    d_in, _ = oracle_dist(g.reversed(), lm)
+    check(np.array_equal(tables.d_out[0].astype(np.int64), d_out),
+          f"landmark {lm}: d_out differs from scipy")
+    check(np.array_equal(tables.d_in[0].astype(np.int64), d_in),
+          f"landmark {lm}: d_in differs from scipy on the reversed edges")
+    log(f"[landmarks] landmark {lm}: d_out == scipy, d_in == scipy on the "
+        f"reversed edge list")
+    t0 = time.perf_counter()
+    plan._landmarks._ells(plan.graph)
+    torch.cuda.synchronize()
+    log(f"[landmarks] all-light ELL blocks (union {2 * n} x "
+        f"{plan._landmarks._union_ell.max_deg}, forward {n} x "
+        f"{plan._landmarks._fwd_ell.max_deg}) built on the host in "
+        f"{time.perf_counter() - t0:.1f} s, once per weight version")
+
+    # -- 10b. queries: every mode to the far and the median target ---------
+    walls = {}
+    for mode in LM_MODES:
+        for name, t in targets.items():
+            q = PointToPoint(0, t, mode=mode)
+            if name == "far":
+                plan.solve(q)                   # warm-up
+            r, w = walls_ms(torch, lambda: plan.solve(q),
+                            3 if name == "far" else 1)
+            tel = r.telemetry
+            check(r.distance == int(ref_dist[t]),
+                  f"{mode} 0->{t}: distance {r.distance} != scipy")
+            check_path(r.path, 0, t, r.distance, keyed, n)
+            check(plan.host_syncs == 2 * tel.buckets + tel.inner_iters + 1,
+                  f"{mode} 0->{t}: host syncs off the formula")
+            check(not tel.overflow, f"{mode}: overflow")
+            walls[(mode, name)] = statistics.median(w)
+            log(f"[landmarks] {mode} 0->{t} ({name}, dist {r.distance}): "
+                f"path of {len(r.path) - 1} valid steps, buckets="
+                f"{tel.buckets} inner_iters={tel.inner_iters} host_syncs="
+                f"{plan.host_syncs}, {fmt(w)}")
+
+    # -- 10c. one profiled alt query: the scatter's share -----------------
+    kern, wall, _, counts = profiled(torch, lambda: plan.solve(
+        PointToPoint(0, far, mode="alt")))
+    r = plan.solve(PointToPoint(0, far, mode="alt"))
+    busy = sum(kern.values())
+    scat = [k for k in kern if "scatter" in k]
+    got = sum(counts[k] for k in scat)
+    # per sweep (light or heavy) one compaction scatter and one
+    # scatter-min, and one scatter-min in pred recovery
+    want = 2 * (r.telemetry.buckets + r.telemetry.inner_iters) + 1
+    if got == want:
+        scat_ms = sum(kern[k] for k in scat)
+        log(f"[profile] landmarks alt 0->{far}: profiled query {wall:.1f} "
+            f"ms, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / wall:.3f}); scatter {scat_ms:.1f} ms (share of "
+            f"busy {scat_ms / busy:.3f}) over {got} records, every record "
+            f"kept")
+        for k, ms_ in sorted(kern.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"[profile]   {ms_:9.3f} ms  x{counts[k]}  {k[:100]}")
+    else:
+        log(f"[profile] landmarks alt 0->{far}: the profiler kept {got} "
+            f"scatter records of {want}: records lost, no share and no "
+            f"breakdown")
+
+    # -- 10d. the store: a second plan hits it -----------------------------
+    second = Engine(g, cfg, device=cuda).plan()
+    t0 = time.perf_counter()
+    second.prepare_landmarks(k=LANDMARK_K, store=store.name)
+    t_hit = (time.perf_counter() - t0) * 1e3
+    hit = second.landmark_tables
+    check(hit is not tables and all(
+        np.array_equal(getattr(hit, f), getattr(tables, f))
+        for f in ("landmarks", "d_out", "d_in")) and
+        (hit.fingerprint, hit.whash) == (tables.fingerprint, tables.whash),
+        "the store's tables differ from the built ones")
+    log(f"[landmarks] store hit on a second plan in {t_hit:.1f} ms (the "
+        f"fingerprint's graph_stats included), tables bitwise equal")
+    del second
+
+    # -- 10e. updates: kept, stale and rebuilt, refused --------------------
+    w0 = g.w.cpu().numpy()
+    batches = dyn_batches(np.random.default_rng(DYN_SEED), g.n_edges, w0,
+                          LM_DYN_K, DYN_SETS)
+    (ids1, wa1), (ids2, wa2) = batches[0], batches[1]
+    inc = np.maximum(wa1, w0[ids1])
+    check((inc > w0[ids1]).any(), "the increase-only batch changes nothing")
+    plan.update(ids1, inc)
+    check(plan.landmark_tables is tables,
+          "an increase-only batch dropped the tables")
+    r = plan.solve(PointToPoint(0, far, mode="alt"))
+    upd, ukeyed = oracle_dist(plan.graph, 0)
+    check(r.distance == int(upd[far]), "alt after an increase-only batch "
+          "differs from scipy on the updated weights")
+    check_path(r.path, 0, far, r.distance, ukeyed, n)
+    log(f"[landmarks] increase-only batch (k={LM_DYN_K}): tables kept, alt "
+        f"0->{far} dist {r.distance} == scipy on the updated weights")
+    plan.update(ids1, wa1)
+    check(plan.landmark_tables is None, "a decreasing batch kept the tables")
+    t0 = time.perf_counter()
+    r = plan.solve(PointToPoint(0, far, mode="alt"))
+    t_rebuild = (time.perf_counter() - t0) * 1e3
+    ee = plan.solve(PointToPoint(0, far))
+    check(plan.landmark_tables is not None and
+          plan.landmark_tables is not tables, "alt did not rebuild the tables")
+    check(r.distance == ee.distance, "alt after the rebuild differs from "
+          "early_exit on the same plan")
+    log(f"[landmarks] decreasing batch under recompute: tables dropped; alt "
+        f"rebuilt them and answered in {t_rebuild:.1f} ms, dist "
+        f"{r.distance} == early_exit")
+    plan.prepare_landmarks(k=LANDMARK_K, store=store.name, on_update="refuse")
+    check(plan._landmarks.would_invalidate(ids2, wa2),
+          "the refused batch lowers no weight")
+    w_before = plan.graph.w.clone()
+    try:
+        plan.update(ids2, wa2)
+        check(False, "the refuse policy applied a decreasing batch")
+    except LandmarkRefused as e:
+        check(e.reason == "landmarks_stale", f"refusal reason {e.reason}")
+    check(torch.equal(plan.graph.w, w_before),
+          "a refused batch changed the weights")
+    log("[landmarks] on_update='refuse': the decreasing batch raised "
+        "LandmarkRefused(reason='landmarks_stale'), weights bitwise "
+        "unchanged")
+    store.cleanup()
+
+    # -- 10f. the game map: every landmark mode on the grid plan -----------
+    for mode in LM_MODES[1:]:
+        r, w = walls_ms(torch, lambda: gplan.solve(
+            PointToPoint(gsrc, gtgt, mode=mode)), 1)
+        tel = r.telemetry
+        check(r.distance == int(gdist[gtgt]), f"gamemap {mode}: distance "
+              "differs from the grid plan's SingleSource")
+        check_path(r.path, gsrc, gtgt, r.distance, gkeyed, gs.n_nodes)
+        check(gplan.host_syncs == 2 * tel.buckets + tel.inner_iters + 1,
+              f"gamemap {mode}: host syncs off the formula")
+        log(f"[landmarks] gamemap {SMALL_SIDE}x{SMALL_SIDE} {mode} "
+            f"{gsrc}->{gtgt}: dist {r.distance} == SingleSource, path of "
+            f"{len(r.path) - 1} valid steps, buckets={tel.buckets} "
+            f"inner_iters={tel.inner_iters}, {fmt(w)}"
+            + (" (builds the tables)" if mode == LM_MODES[1] else ""))
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the landmark solves launched a kernel: {launches}")
+    log(f"[landmarks] launches over phase 10: {json.dumps(launches)}")
+    log(f"[landmarks] far-target medians (ms): " + ", ".join(
+        f"{m} {walls[(m, 'far')]:.1f}" for m in LM_MODES))
+    log(f"[landmarks] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1780,7 +2055,7 @@ def main() -> int:
     # -- 7. where a solve's device time goes (one profiled solve each) ------
     for key in (("fused", "argmin"), ("pallas", "argmin"), ("ell", "argmin"),
                 ("edge", "argmin")):
-        kern, wall, seen = profiled(torch, lambda: plans[key].solve(
+        kern, wall, seen, _ = profiled(torch, lambda: plans[key].solve(
             SingleSource(0)), counters=counters)
         busy = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
@@ -1790,6 +2065,9 @@ def main() -> int:
             f"records {seen_line(seen)}")
         for name, ms in top:
             log(f"[profile]   {ms:9.3f} ms  {name[:110]}")
+
+    # -- 10. landmark point-to-point queries (before phase 9's updates) ----
+    landmark_path(torch, np, cuda, g, ref_dist, keyed, counters)
 
     # -- 9. dynamic graphs: warm re-solves (updates phase 3's plans) -------
     launches_dyn, launches_lat, dyn_records = dynamic_path(
@@ -1836,7 +2114,7 @@ def main() -> int:
             if yard is not None:
                 yard_ms, _ = queued_ms(torch, yard[1], iters,
                                        timed_ms(torch, yard[1], iters))
-            kern, _, seen = profiled(torch, kernel_fn, iters, counter)
+            kern, _, seen, _ = profiled(torch, kernel_fn, iters, counter)
             kept, n_launch = seen[name]
             own = OWN_KERNELS.get(name)
             check(own is None or kept < n_launch or (

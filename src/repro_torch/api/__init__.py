@@ -14,9 +14,14 @@
                   free_mask=free).plan()
     plan.solve(PointToPoint(0, g.n_nodes - 1)).path
     plan.solve(BoundedRadius(0, 1000)).dist
+
+    # goal-directed point to point: landmark tables, then ALT and/or
+    # bidirectional search (same distance as early exit)
+    plan.prepare_landmarks(k=4)
+    plan.solve(PointToPoint(0, g.n_nodes - 1, mode="alt_bidirectional"))
 """
-from repro_torch.api.engine import Engine, Plan, UpdateRefused
-from repro_torch.api.paths import extract_path
+from repro_torch.api.engine import Engine, LandmarkRefused, Plan, UpdateRefused
+from repro_torch.api.paths import extract_path, stitch_bidirectional_path
 from repro_torch.api.queries import (
     BoundedRadius,
     BoundedRadiusResult,
@@ -38,6 +43,7 @@ __all__ = [
     "BoundedRadius",
     "BoundedRadiusResult",
     "Engine",
+    "LandmarkRefused",
     "ManyToMany",
     "ManyToManyResult",
     "MultiSource",
@@ -53,4 +59,5 @@ __all__ = [
     "UpdateBatch",
     "UpdateRefused",
     "extract_path",
+    "stitch_bidirectional_path",
 ]

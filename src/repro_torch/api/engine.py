@@ -9,8 +9,13 @@ loop and recovers predecessors. Ported query kinds, on every ported
 strategy and policy: ``SingleSource``; ``MultiSource`` (lane ``b``
 bitwise ``SingleSource(sources[b])``; ``edge`` and ``ell`` solve the
 lanes as one ``[B, n]`` loop, the kernel strategies lane by lane);
-``PointToPoint`` in mode ``early_exit`` (the target settles, the loop
-stops; the path comes from the predecessor tree); ``BoundedRadius``
+``PointToPoint`` in every mode: ``early_exit`` (the target settles, the
+loop stops; the path comes from the predecessor tree) and the landmark
+modes ``alt``, ``bidirectional`` and ``alt_bidirectional``
+(``repro_torch.landmarks``, DESIGN.md §14: tables from
+``Plan.prepare_landmarks`` or built on the first ALT query, solves on an
+all-light ``EllBackend`` over the reduced or doubled graph, whatever
+the plan's strategy; delta policy only); ``BoundedRadius``
 (the loop stops once nothing within ``radius`` can change; farther
 vertices report as unreachable); ``ManyToMany`` (tiled
 ``MultiSource`` solves).
@@ -33,7 +38,9 @@ plan (device tensors; they reach the host only inside ``resolve``);
 fixed), and ``plan.resolve(warm=True)`` re-solves the resident problem
 by warm-start repair — bitwise identical to a cold solve of the updated
 graph. ``plan.solve(UpdateBatch(...))`` is the query-algebra packaging
-of the same pair.
+of the same pair. A batch that lowers a weight below its landmark-table
+build value drops the tables (``on_update="recompute"``) or is refused
+before any weight changes (``"refuse"``, ``LandmarkRefused``).
 
 Game maps: ``free_mask`` (bool[H, W], H * W = n) routes
 ``strategy='pallas'`` to the grid stencil ``kernels/grid_relax``; other
@@ -49,8 +56,7 @@ strategies launch the hand-written kernels; on the CPU their twins run.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): tuning (``Engine(graph)`` without a config, ROADMAP Queue 1 item
-11), the landmark ``PointToPoint`` modes and their update hook (item
-10) and the sharded strategies (item 12).
+2) and the sharded strategies (item 5).
 """
 from __future__ import annotations
 
@@ -62,7 +68,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.api.paths import extract_path
+from repro_torch.api.paths import extract_path, stitch_bidirectional_path
 from repro_torch.api.queries import (
     BoundedRadius,
     BoundedRadiusResult,
@@ -133,6 +139,22 @@ class UpdateRefused(ValueError):
         self.reason = reason
 
 
+class LandmarkRefused(UpdateRefused):
+    """Refusal of a weight batch that would invalidate the plan's
+    landmark tables under the ``on_update="refuse"`` policy
+    (``Plan.prepare_landmarks``): some new weight drops below its
+    table-build value, so the ALT potentials would stop being
+    admissible. Raised BEFORE any weight is applied — the plan and its
+    tables are untouched.
+
+    >>> try:
+    ...     raise LandmarkRefused("no", reason="landmarks_stale")
+    ... except UpdateRefused as e:
+    ...     e.reason
+    'landmarks_stale'
+    """
+
+
 def _mark_fallback(res: Result) -> Result:
     tel = dataclasses.replace(res.telemetry, fallback=True)
     return dataclasses.replace(res, telemetry=tel)
@@ -194,6 +216,10 @@ class Plan:
         # weight-independent ELL pad width, made on first use
         self._topology = None
         self._twin_width = None
+        # landmark residency (repro_torch.landmarks): made by
+        # prepare_landmarks, or with the default spec on the first
+        # landmark-mode PointToPoint
+        self._landmarks = None
 
     def _bind_drivers(self) -> None:
         """Partially apply the solve drivers for the plan's policy. Every
@@ -250,8 +276,8 @@ class Plan:
         can overflow, and their blocks do not depend on the cap, so the
         twin shares them, the graph and the policy, and only widens
         ``cap`` to ``n`` (the reference rebuilds the whole plan; the
-        answers are the same). The resident state rides along: it was
-        solved on the same graph and pred mode."""
+        answers are the same). The resident state and the landmark
+        state ride along: both depend on the graph, never on the cap."""
         twin = copy.copy(self)
         twin.config = dataclasses.replace(self.config, frontier_cap=None)
         twin.backend = dataclasses.replace(self.backend,
@@ -268,13 +294,28 @@ class Plan:
         updated graph, and leave the resident answer untouched until the
         next ``resolve`` diffs against its snapshot — so several batches
         between resolves compose. A grid plan refuses them, as the
-        reference does. Returns ``self``."""
+        reference does. A batch that would drop a weight below its
+        landmark-table build value under ``on_update="refuse"`` raises
+        ``LandmarkRefused`` before any weight changes; otherwise the
+        landmark state re-validates its tables after the swap. Returns
+        ``self``."""
         if isinstance(self.backend, GridPallasBackend):
             raise UpdateRefused(
                 "grid-stencil (game-map) plans take their costs from "
                 "DeltaConfig.grid_costs, not the COO weight array; "
                 "edge-weight updates do not apply to them",
                 reason="grid_costs")
+        states = self._landmark_states()
+        if any(lm.spec.on_update == "refuse"
+               and lm.would_invalidate(edge_ids, new_weights)
+               for lm in states):
+            # checked BEFORE applying: a refused batch leaves both the
+            # weights and the landmark tables exactly as they were
+            raise LandmarkRefused(
+                "weight decrease below the landmark-table build values "
+                "would invalidate the precomputed ALT potentials (plan "
+                "prepared with on_update='refuse')",
+                reason="landmarks_stale")
         graph = apply_weight_update(self.graph, edge_ids, new_weights)
         self._install(graph, self._rebuild_backend(graph))
         if self._demoted is not None:
@@ -283,7 +324,20 @@ class Plan:
             self._demoted._install(
                 graph, dataclasses.replace(self.backend, cap=graph.n_nodes),
                 self._policy)
+        for lm in states:
+            lm.note_update(graph)
         return self
+
+    def _landmark_states(self) -> list:
+        """The landmark states this plan's updates must keep honest: its
+        own, and its full-width twin's where that one made its own (a
+        landmark query answered after demotion)."""
+        out = []
+        for plan in (self, self._demoted):
+            lm = None if plan is None else plan._landmarks
+            if lm is not None and all(lm is not x for x in out):
+                out.append(lm)
+        return out
 
     def _install(self, graph: COOGraph, backend, policy=None) -> None:
         """Make ``graph`` (and its ``backend``) the plan's current one.
@@ -436,11 +490,62 @@ class Plan:
         self._resident = Resident(int(source), dist.clone(), pred.clone(),
                                   self.graph.w, bool(overflow))
 
+    # -- landmark residency (repro_torch.landmarks, DESIGN.md §14) ---------
+
+    def prepare_landmarks(
+        self,
+        k: int = 4,
+        strategy: str = "farthest",
+        seed: int = 0,
+        *,
+        store: Optional[str] = None,
+        on_update: str = "recompute",
+        build: bool = True,
+    ) -> "Plan":
+        """Attach landmark residency to the plan: ``k`` landmarks chosen
+        by ``strategy`` (``farthest``/``random``), distance tables
+        persisted in the fingerprint-keyed ``store`` directory (``None``
+        = in-memory), and the ``on_update`` policy for weight batches
+        that would invalidate the tables (``recompute`` drops and lazily
+        rebuilds them; ``refuse`` rejects the batch with
+        ``LandmarkRefused`` before applying it). ``build=False`` defers
+        the precompute to the first landmark-mode query. Returns
+        ``self``."""
+        from repro_torch.landmarks import (LandmarkSpec, LandmarkState,
+                                           require_canonical)
+
+        spec = LandmarkSpec(k=k, strategy=strategy, seed=seed,
+                            store=store, on_update=on_update)
+        self._landmarks = LandmarkState(spec, self.config.delta)
+        if build:
+            # deferred builds re-check at the first landmark-mode query
+            require_canonical(self.graph)
+            self._landmarks.ensure_tables(self.graph)
+        if self._demoted is not None:
+            self._demoted._landmarks = self._landmarks
+        return self
+
+    def _landmark_state(self):
+        """The plan's landmark residency, created with the default spec
+        on first use (a landmark-mode query against an unprepared plan
+        pays the table build lazily)."""
+        if self._landmarks is None:
+            from repro_torch.landmarks import LandmarkSpec, LandmarkState
+
+            self._landmarks = LandmarkState(LandmarkSpec(), self.config.delta)
+        return self._landmarks
+
+    @property
+    def landmark_tables(self):
+        """The resident ``LandmarkTables``, or ``None`` when unprepared,
+        not yet built, or invalidated by a weight update."""
+        return None if self._landmarks is None else self._landmarks.tables
+
     def explain(self) -> dict:
-        """Plan provenance: the operating point, whether the overflow
-        fallback has demoted the plan, and the resident source. Landmarks
-        and tuning are not ported (ROADMAP Queue 1 items 10, 11), so
-        their fields are ``None``."""
+        """Plan provenance: the operating point, the landmark count of
+        the resident tables, whether the overflow fallback has demoted
+        the plan, and the resident source. Tuning is not ported (ROADMAP
+        Queue 1 item 2), so ``tuning_source`` is ``None``."""
         cfg = self.config
         return {
             "delta": cfg.delta,
@@ -450,7 +555,8 @@ class Plan:
             "frontier_cap": cfg.frontier_cap,
             "n_shards": cfg.n_shards,
             "p2p_mode": cfg.p2p_mode,
-            "landmarks": None,
+            "landmarks": (None if self.landmark_tables is None
+                          else self.landmark_tables.k),
             "tuning_source": None,
             "fallback_taken": self._demoted is not None,
             "resident_source": (None if self._resident is None
@@ -502,15 +608,7 @@ class Plan:
         tgt = _check_vertex("target", q.target, n)
         mode = q.mode if q.mode is not None else self.config.p2p_mode
         if mode != "early_exit":
-            if self.config.policy != "delta":
-                raise ValueError(
-                    "landmark p2p modes (alt/bidirectional) run the bucket "
-                    "loop's all-light drivers and are delta-only; "
-                    f"policy={self.config.policy!r} plans answer "
-                    "PointToPoint via mode='early_exit'")
-            raise NotImplementedError(
-                f"PointToPoint mode {mode!r} is not ported to repro_torch "
-                "yet (ROADMAP Queue 1 item 10, landmarks)")
+            return self._p2p_landmark(src, tgt, mode)
         out = self._run_p2p(self.backend, src, tgt)
         # every vertex on a shortest source->target path is settled at
         # early exit, so the partial predecessor state is exact along
@@ -521,6 +619,35 @@ class Plan:
         if distance < _INF and self.config.pred_mode != "none":
             path = extract_path(pred.cpu().numpy(), src, tgt, n)
         return PointToPointResult(distance, path, tel)
+
+    def _p2p_landmark(self, src: int, tgt: int,
+                      mode: str) -> PointToPointResult:
+        """Goal-directed point-to-point (repro_torch.landmarks): the
+        landmark state solves over a reduced / doubled graph and hands
+        back original-space predecessor trees; the distance is bitwise
+        the early-exit answer, and the path goes through the same
+        cycle-guarded extractors as every other query."""
+        if self.config.policy != "delta":
+            raise ValueError(
+                "landmark p2p modes (alt/bidirectional) run the bucket "
+                "loop's all-light drivers and are delta-only; "
+                f"policy={self.config.policy!r} plans answer "
+                "PointToPoint via mode='early_exit'")
+        want_pred = self.config.pred_mode != "none"
+        r = self._landmark_state().solve_p2p(self.graph, src, tgt, mode,
+                                             want_pred=want_pred)
+        self.host_syncs = r.host_syncs
+        tel = Telemetry(r.outer, r.inner, r.overflow)
+        if r.distance >= _INF or not want_pred:
+            return PointToPointResult(r.distance, None, tel)
+        n = self.graph.n_nodes
+        if r.pred_b is None:
+            path = extract_path(r.pred_f.cpu().numpy(), src, tgt, n)
+        else:
+            path = stitch_bidirectional_path(
+                r.pred_f.cpu().numpy(), r.pred_b.cpu().numpy(), src, tgt,
+                r.meet, n)
+        return PointToPointResult(r.distance, path, tel)
 
     def _bounded(self, q: BoundedRadius) -> BoundedRadiusResult:
         radius = int(q.radius)
@@ -576,7 +703,7 @@ class Engine:
         if config is None or isinstance(config, str) or tuning is not None:
             raise NotImplementedError(
                 "tuning (Engine(graph), config='auto', tuning=...) is not "
-                "ported to repro_torch yet (ROADMAP Queue 1 item 11); pass "
+                "ported to repro_torch yet (ROADMAP Queue 1 item 2); pass "
                 "a concrete DeltaConfig")
         self.device = resolve_device(device)
         self.graph = graph.to(self.device)
@@ -588,7 +715,7 @@ class Engine:
              fallback: bool = False) -> Plan:
         """Build the ``Plan``. ``sources`` only feeds tuning in the
         reference (a tuned frontier cap is validated against them);
-        tuning is not ported (ROADMAP Queue 1 item 11), so it is accepted
+        tuning is not ported (ROADMAP Queue 1 item 2), so it is accepted
         and unused. ``fallback=True`` arms the overflow fallback of a
         plan with a ``frontier_cap``."""
         del sources
@@ -596,4 +723,5 @@ class Engine:
                     fallback=fallback)
 
 
-__all__ = ["Engine", "Plan", "UpdateRefused", "resolve_device"]
+__all__ = ["Engine", "LandmarkRefused", "Plan", "UpdateRefused",
+           "resolve_device"]

@@ -496,7 +496,7 @@ def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
     if cfg.strategy in _SHARDED:
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 12, multi-GPU)")
+            "(ROADMAP Queue 1 item 5, multi-GPU)")
     if cfg.strategy == "edge":
         return EdgeBackend.build(graph, cfg)
     if cfg.strategy == "ell":

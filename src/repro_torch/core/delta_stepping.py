@@ -28,6 +28,11 @@ bitwise its single solve; all lanes' loop conditions come back in one
 transfer per loop step. The kernel strategies run a batch lane by lane
 (``_run_lanes``), as the reference runs them under ``lax.map``.
 
+The landmark drivers (``_run_one_p2p(all_light=True)`` and
+``_run_one_bidir``, DESIGN.md §14) add a predicate checked before every
+light sweep (``inner_stop``); it comes back in the transfer that reads
+the light-phase flag, so their host syncs follow the same formula.
+
 The frontier-policy loop (``_run_policy``, ρ- and radius-stepping,
 DESIGN.md §15) reads its round condition once per round, and radius's
 closure condition once per closure step; a stop predicate comes back in
@@ -49,6 +54,10 @@ _INF = int(INF32)
 _IMAX = 2**31 - 1
 
 P2P_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
+# Per-side clamp of the bidirectional meeting sums: tent values are
+# clipped to 2^30 - 1 before the int32-safe f + b addition. Exact
+# whenever finite point-to-point distances stay below 2^30.
+_MEET_CLIP = 2**30 - 1
 STRATEGIES = ("edge", "ell", "pallas", "fused", "sharded_edge",
               "sharded_ell", "sharded_fused")
 
@@ -238,24 +247,104 @@ def _run_one_warm(backend: RelaxBackend, tent0, explored0, *, n: int,
                         init=(tent0, explored0))
 
 
+def _pending_min(d, explored):
+    """Minimum tentative distance over *pending* vertices (``tent <
+    explored``; an undiscovered vertex has tent == explored == INF and
+    is excluded). On an all-light backend, and in every policy loop,
+    every future tent value derives from relaxing a pending vertex, so
+    it is >= this bound — the Dijkstra priority-queue minimum."""
+    return torch.where(d < explored, d, _INF).min()
+
+
 def _run_one_p2p(backend: RelaxBackend, source: int, target: int, *, n: int,
-                 packed: bool, device) -> RunOut:
+                 packed: bool, device, all_light: bool = False) -> RunOut:
     """Point-to-point solve with early exit (Kainer & Träff 2019,
     DESIGN.md §10): when the outer loop advances past bucket i, every
     vertex whose tentative distance lies in a bucket <= i is settled,
     and the next-bucket scan is a global min over the unsettled tent
     values, so ``tent[target] // Δ < next_bucket`` proves the target's
-    distance final. The landmark paths' mid-bucket exit
-    (``all_light``/``inner_stop``) is not ported (ROADMAP Queue 1 item
-    10)."""
+    distance final.
+
+    ``all_light=True`` (the landmark ALT path, DESIGN.md §14) adds a
+    mid-bucket exit: once ``tent[target] <= min pending tent``, no
+    future relaxation can improve the target — essential under tight
+    potentials, where the whole corridor collapses into bucket 0. Sound
+    only when every relaxed vertex has *all* its edges swept at once
+    (no deferred heavy phase), hence the all-light gate."""
     delta = backend.delta
 
     def stop(tent, explored, nxt):
         d_t = dist_of(tent, packed)[target]
         return (d_t < _INF) & ((d_t // delta) < nxt)
 
+    inner_stop = None
+    if all_light:
+        def inner_stop(tent, explored):
+            d = dist_of(tent, packed)
+            return (d[target] < _INF) & (d[target] <= _pending_min(
+                d, explored))
+
     return _run_backend(backend, source, n=n, packed=packed, device=device,
-                        stop=stop)
+                        stop=stop, inner_stop=inner_stop)
+
+
+def _run_one_bidir(backend: RelaxBackend, tent0, explored0, *, n: int,
+                   packed: bool, device, all_light: bool = False) -> RunOut:
+    """Bidirectional point-to-point solve (DESIGN.md §14). ``backend``
+    relaxes the disjoint union of the graph with its reversed copy
+    (``graphs.union_with_reverse``; ``n`` is the union size ``2 *
+    half``); ``tent0`` seeds *two* searches through the warm-init hook
+    — the source in the forward half and the target's twin in the
+    reversed half — so one lockstep bucket loop advances both.
+
+    Meeting rule: μ = min_v (tent[v] + tent[v + half]) over the half
+    vertices, an upper bound on dist(s, t) that becomes exact once some
+    vertex on a shortest path has exact tents on both sides.
+
+    * Generic backends stop between buckets when 2·nxt·Δ >= μ.
+    * ``all_light=True`` (the landmark path) uses the bidirectional
+      Dijkstra rule μ <= L_f + L_b, with L_f/L_b the per-half *pending*
+      minimums, as ``stop`` and as ``inner_stop`` (checked mid-bucket
+      too: under tight ALT potentials both searches live in bucket 0).
+
+    The returned tent carries both half solutions; the caller extracts
+    μ = dist(s, t) and the meeting vertex."""
+    half = n // 2
+    delta = backend.delta
+
+    def _mu(d):
+        f, b = d[:half], d[half:]
+        fin = (f < _INF) & (b < _INF)
+        sums = torch.where(fin, f.clamp(max=_MEET_CLIP)
+                           + b.clamp(max=_MEET_CLIP), _INF)
+        return sums.min()
+
+    inner_stop = None
+    if all_light:
+        def meet(tent, explored):
+            d = dist_of(tent, packed)
+            lf = _pending_min(d[:half], explored[:half])
+            lb = _pending_min(d[half:], explored[half:])
+            # clamping only lowers the threshold (never a premature
+            # stop); an exhausted side (L = INF -> clip) is final
+            bound = lf.clamp(max=_MEET_CLIP) + lb.clamp(max=_MEET_CLIP)
+            mu = _mu(d)
+            return (mu < _INF) & (mu <= bound)
+
+        def stop(tent, explored, nxt):
+            return meet(tent, explored)
+
+        inner_stop = meet
+    else:
+        def stop(tent, explored, nxt):
+            mu = _mu(dist_of(tent, packed))
+            # 2·nxt·Δ wraps in int32 as in the reference: a wrap can
+            # only go negative, which keeps the loop running
+            return (mu < _INF) & (2 * nxt * delta >= mu)
+
+    return _run_backend(backend, None, n=n, packed=packed, device=device,
+                        stop=stop, init=(tent0, explored0),
+                        inner_stop=inner_stop)
 
 
 def _run_one_bounded(backend: RelaxBackend, source: int, radius: int, *,
@@ -273,14 +362,22 @@ def _run_one_bounded(backend: RelaxBackend, source: int, radius: int, *,
                         stop=stop)
 
 
-def _read(flag, extra):
-    """One device→host transfer: ``flag`` as an int, and the device
-    bool ``extra`` (a stop predicate) with it when there is one."""
-    if extra is None:
-        return int(flag), False
-    flag, extra = torch.stack([flag.to(torch.int64),
-                               extra.to(torch.int64)]).tolist()
-    return flag, bool(extra)
+def _read(flag, *preds):
+    """One device→host transfer: ``flag`` as an int, then each device
+    bool of ``preds`` (stop predicates) as a bool — ``False`` for a
+    ``None``."""
+    live = [p.to(torch.int64) for p in preds if p is not None]
+    if not live:
+        return (int(flag),) + (False,) * len(preds)
+    vals = iter(torch.stack([flag.to(torch.int64)] + live).tolist())
+    flag = next(vals)
+    return (flag,) + tuple(p is not None and bool(next(vals))
+                           for p in preds)
+
+
+def _check(pred, tent, explored):
+    """``pred(tent, explored)``, or ``None`` when there is no predicate."""
+    return None if pred is None else pred(tent, explored)
 
 
 def _or(over, o):
@@ -290,11 +387,11 @@ def _or(over, o):
 
 
 def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
-                 packed: bool, device, stop=None, init=None) -> RunOut:
+                 packed: bool, device, stop=None, init=None,
+                 inner_stop=None) -> RunOut:
     """Outer/inner Δ-stepping loop (paper Alg. 1) over one backend. Same
-    op sequence on the same states as the reference's ``_run_backend``
-    with no ``inner_stop`` hook, so tent words and counters are bitwise
-    the reference's.
+    op sequence on the same states as the reference's ``_run_backend``,
+    so tent words and counters are bitwise the reference's.
 
     ``stop`` is the optional early-exit predicate ``(tent, explored,
     next_bucket) -> device bool`` checked between buckets, as the
@@ -305,11 +402,26 @@ def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
     the next bucket after each bucket), so it adds no host
     synchronisation. ``None`` keeps the full-solve loop unchanged.
 
+    ``inner_stop`` is an optional ``(tent, explored) -> device bool``
+    checked before every light sweep — after the priming scan and after
+    every re-scan — that ends the bucket's light phase when it holds
+    (the heavy pass, the next-bucket scan and ``stop`` still follow).
+    It is read in the transfer that reads the light-phase flag, so it
+    adds no host synchronisation either; its soundness is the caller's
+    (the all-light landmark drivers). The classic loop only: a backend
+    with the fused light phase raises ``ValueError`` when it is given.
+
     ``init`` is an optional warm ``(tent0, explored0)`` state (the
     dynamic repair path, DESIGN.md §11; ``source`` is then unused);
     ``None`` is the cold all-INF start. Either way the loop starts at
     bucket 0, and the host syncs stay ``2 * buckets + inner_iters +
-    1``."""
+    1`` (a ``stop`` before bucket 0 returns ``init``, or the cold
+    state, after the one transfer that read it)."""
+    fused = getattr(backend, "supports_fused_light", False)
+    if fused and inner_stop is not None:
+        raise ValueError(
+            "inner_stop runs on the classic light loop only; the fused "
+            "light phase has no check between its scan and its sweep")
     if init is None:
         tent = init_tent(n, source, packed, device)
         explored = torch.full((n,), _INF, dtype=torch.int32, device=device)
@@ -317,7 +429,6 @@ def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
         tent, explored = init
     tent0 = tent
     over = torch.zeros((), dtype=torch.bool, device=device)
-    fused = getattr(backend, "supports_fused_light", False)
     i, outer, inner, syncs = 0, 0, 0, 0
     # outer_cond's check before bucket 0 (i < IMAX holds for i = 0); a
     # stop there returns the cold state with zero counters
@@ -339,24 +450,27 @@ def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
                 go, halt = _read(any_, first)
                 syncs += 1
                 if halt:
-                    return RunOut(tent0, 0, 0, False, syncs + 1)
+                    return RunOut(tent0, 0, 0, False, syncs)
                 first = None
                 over = over | o
                 inner += go
         else:
             f, go, _ = backend.scan(dist_of(tent, packed), explored, i)
-            go, halt = _read(go, first)
+            go, halt, done = _read(go, first, _check(inner_stop, tent,
+                                                     explored))
             syncs += 1
             if halt:
-                return RunOut(tent0, 0, 0, False, syncs + 1)
+                return RunOut(tent0, 0, 0, False, syncs)
             first = None
+            go = go and not done
             while go:
                 explored = torch.where(f, dist_of(tent, packed), explored)
                 in_s = in_s | f                      # paper: move into S
                 tent, o = backend.sweep(tent, f, i, light=True, packed=packed)
                 over = _or(over, o)
                 f, go, _ = backend.scan(dist_of(tent, packed), explored, i)
-                go = bool(go)
+                go, done = _read(go, _check(inner_stop, tent, explored))
+                go = go and not done
                 syncs += 1
                 inner += 1
         # heavy pass from S (paper Alg. 1 lines 19-20)
@@ -379,12 +493,6 @@ def _run_backend(backend: RelaxBackend, source: Optional[int], *, n: int,
 # the frontier-policy loop (DESIGN.md §15) — rho / radius stepping over
 # the same relaxation backends
 # ---------------------------------------------------------------------------
-
-def _pending_min(d, explored):
-    """Minimum tentative distance over *pending* vertices (``tent <
-    explored``): every future tent value of a policy loop is >= it."""
-    return torch.where(d < explored, d, _INF).min()
-
 
 def _run_policy(backend: RelaxBackend, policy, source: Optional[int], *,
                 n: int, packed: bool, device, stop=None,
@@ -555,8 +663,8 @@ def _finish_pred_many(tent, coo: COOGraph, sources, cfg: DeltaConfig):
 def _deprecated_shim(name: str):
     raise NotImplementedError(
         f"{name} is a deprecated shim in the reference and is not ported "
-        "(ROADMAP Queue 1 item 13); use repro_torch.api.Engine(graph, "
-        "config).plan().solve(query)")
+        "yet (ROADMAP Queue 1 item 2, with the tuner); use "
+        "repro_torch.api.Engine(graph, config).plan().solve(query)")
 
 
 class DeltaSteppingSolver:

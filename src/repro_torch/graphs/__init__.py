@@ -8,6 +8,7 @@ from repro_torch.graphs.structures import (
     coo_to_csr,
     csr_to_ell,
     light_heavy_split,
+    union_with_reverse,
 )
 from repro_torch.graphs.generators import (
     grid_map,
@@ -26,6 +27,7 @@ __all__ = [
     "coo_to_csr",
     "csr_to_ell",
     "light_heavy_split",
+    "union_with_reverse",
     "watts_strogatz",
     "rmat",
     "grid_map",

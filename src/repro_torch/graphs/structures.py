@@ -141,6 +141,21 @@ def csr_to_ell(g: CSRGraph, max_deg: int | None = None) -> ELLGraph:
     return ELLGraph(_dev(nbr, dev), _dev(ww, dev), n, max_deg)
 
 
+def union_with_reverse(g: COOGraph) -> COOGraph:
+    """Disjoint union of ``g`` with its edge-reversed copy: vertices
+    ``0..n-1`` carry the original graph, vertices ``n..2n-1`` the
+    reversed one (edge ``(u, v, w)`` also appears as ``(v+n, u+n, w)``).
+    One Δ-stepping solve seeded at ``s`` (forward half) and ``t+n``
+    (reversed half) runs a forward and a backward search in bucket
+    lockstep — the substrate of the bidirectional point-to-point modes
+    and of the landmark table rows (``repro_torch.landmarks``). Built
+    on the graph's device, int32, in the reference's edge order."""
+    n = g.n_nodes
+    return COOGraph(torch.cat([g.src, g.dst + n]),
+                    torch.cat([g.dst, g.src + n]),
+                    torch.cat([g.w, g.w]), 2 * n)
+
+
 def light_heavy_split(g: CSRGraph, delta: int) -> Tuple[CSRGraph, CSRGraph]:
     """Paper Alg. 1 lines 3–5: split outgoing edges into light (w <= Δ)
     and heavy (w > Δ) CSR structures (host-side)."""

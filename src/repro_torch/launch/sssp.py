@@ -9,13 +9,19 @@
   PYTHONPATH=src python -m repro_torch.launch.sssp --sources 4 \\
       --policy rho --rho 512 --strategy ell --verify
 
+  PYTHONPATH=src python -m repro_torch.launch.sssp --nodes 100000 \\
+      --target 54321 --p2p-mode alt_bidirectional --landmarks 4 --verify
+
 Flag names follow ``repro.launch.sssp``. The solve runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 first solve builds the CUDA kernels and warms up; the second is timed.
 ``--graph gamemap`` is a ``sqrt(nodes)``-square occupancy grid with
 obstacle fraction 0.1 at Δ = 13; ``--strategy pallas`` solves it with
-the grid stencil. ``--target T`` answers one early-exit
-``PointToPoint`` query from source 0 instead of the full solve.
+the grid stencil. ``--target T`` answers one ``PointToPoint`` query
+from source 0 instead of the full solve, in ``--p2p-mode`` (default
+``early_exit``; the landmark modes ``alt``, ``bidirectional``,
+``alt_bidirectional`` first build ``--landmarks K`` landmark tables,
+default 4, and print the build time).
 ``--sources K`` solves sources 0..K-1 as one ``MultiSource`` query
 (``edge`` and ``ell``: one batched loop; the kernel strategies: lane by
 lane). ``--policy rho|radius`` (with ``--rho`` / ``--radius-k``) runs
@@ -58,8 +64,16 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain twins)")
     ap.add_argument("--target", type=int, default=None,
-                    help="point-to-point query: early-exit solve from "
-                         "source 0 to this vertex")
+                    help="point-to-point query from source 0 to this "
+                         "vertex")
+    ap.add_argument("--p2p-mode", default="early_exit",
+                    choices=["early_exit", "alt", "bidirectional",
+                             "alt_bidirectional"],
+                    help="--target search mode: goal-directed (alt*) "
+                         "and/or bidirectional Δ-stepping")
+    ap.add_argument("--landmarks", type=int, default=None, metavar="K",
+                    help="landmark count for --p2p-mode other than "
+                         "early_exit (default 4)")
     ap.add_argument("--verify", action="store_true")
     args = ap.parse_args(argv)
 
@@ -97,15 +111,25 @@ def main(argv=None):
     if cfg.policy != "delta":
         print(f"[sssp] frontier policy: {cfg.policy}")
     if args.target is not None:
-        q = PointToPoint(sources[0], args.target)
+        mode = args.p2p_mode
+        build = ""
+        if mode != "early_exit":
+            t0 = time.perf_counter()
+            plan.prepare_landmarks(k=args.landmarks or 4)
+            build = (f", k={plan.landmark_tables.k} landmark tables in "
+                     f"{time.perf_counter() - t0:.1f} s")
+        q = PointToPoint(sources[0], args.target, mode=mode)
         plan.solve(q)                           # kernel build + warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         r = plan.solve(q)
         dt = time.perf_counter() - t0
         hops = 0 if r.path is None else len(r.path) - 1
         print(f"[sssp] p2p {sources[0]}->{args.target} on {name}: "
               f"dist={r.distance} "
-              f"hops={hops} buckets={r.telemetry.buckets} (early_exit), "
+              f"hops={hops} buckets={r.telemetry.buckets} "
+              f"inner_iters={r.telemetry.inner_iters} ({mode}{build}), "
               f"{dt * 1e3:.1f} ms, host syncs={plan.host_syncs}")
         if args.verify:
             ref, _ = dijkstra(g, sources[0])

@@ -13,11 +13,11 @@ config.
 """
 import contextlib
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.api import Engine as JEngine
 from repro.api import ManyToMany as JManyToMany
 from repro.api import MultiSource as JMultiSource
@@ -48,10 +48,8 @@ INF = 2**31 - 1
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 def _graph(name):

@@ -16,11 +16,11 @@ once and takes all its batches, so each of its programs compiles once.
 """
 import contextlib
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.api import Engine as JEngine
 from repro.api import SingleSource as JSingleSource
 from repro.api import UpdateBatch as JUpdateBatch
@@ -45,10 +45,8 @@ INF = 2**31 - 1
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 def _port_graph(jg):

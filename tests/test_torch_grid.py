@@ -20,12 +20,12 @@ twins); every output is an integer array or counter and must be equal
 * the reference's refusals, with the reference's exception types;
 * the launcher's game-map path end to end with ``--verify``.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.api import BoundedRadius as JBoundedRadius
 from repro.api import Engine as JEngine
 from repro.api import PointToPoint as JPointToPoint
@@ -63,10 +63,8 @@ COSTS = dict(cost_straight=10, cost_diag=14)
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 # ---------------------------------------------------------------- kernel twin

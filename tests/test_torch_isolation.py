@@ -5,9 +5,9 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (tuning, the landmark modes, the sharded strategies and
-  the deprecated solver shims; the batched queries, the frontier
-  policies and dynamic updates are ported); the launcher runs end to
+  ROADMAP item (tuning and the deprecated solver shims, the sharded
+  strategies; the batched queries, the frontier policies, dynamic
+  updates and the landmark modes are ported); the launcher runs end to
   end on the CPU with --verify.
 """
 import ast
@@ -51,6 +51,10 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/core/grid.py",
                  "src/repro_torch/core/policies.py",
                  "src/repro_torch/dynamic/repair.py",
+                 "src/repro_torch/landmarks/alt.py",
+                 "src/repro_torch/landmarks/tables.py",
+                 "src/repro_torch/landmarks/store.py",
+                 "src/repro_torch/tune/estimator.py",
                  "src/repro_torch/api/engine.py", "chip_smoke.py"):
         assert must in names
 
@@ -77,19 +81,20 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
 def test_unported_parts_raise_with_roadmap_item():
     g = watts_strogatz(20, 4, 0.1, seed=0)
     cfg = DeltaConfig(delta=5)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         Engine(g, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         Engine(g, cfg, tuning="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         Engine(g, DeltaConfig(strategy="sharded_edge"), device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         DeltaSteppingSolver(g, cfg)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         delta_stepping(g, 0, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine(g, cfg, device="cpu").plan().solve(
-            PointToPoint(0, 3, mode="alt"))
+    # ported: the landmark modes answer as early exit does
+    plan = Engine(g, cfg, device="cpu").plan()
+    assert plan.solve(PointToPoint(0, 3, mode="alt")).distance == \
+        plan.solve(PointToPoint(0, 3)).distance
     for policy in ("delta", "rho", "radius"):
         plan = Engine(g, DeltaConfig(delta=5, policy=policy),
                       device="cpu").plan()
@@ -114,11 +119,17 @@ def test_delta_config_validates_like_reference():
             DeltaConfig(**bad)
 
 
-@pytest.mark.parametrize("strategy,pred_mode", [("fused", "argmin"),
-                                                ("pallas", "packed")])
-def test_launcher_runs_on_cpu_with_verify(capsys, strategy, pred_mode):
+@pytest.mark.parametrize("strategy,pred_mode,extra", [
+    pytest.param("fused", "argmin", [], id="fused-argmin"),
+    pytest.param("pallas", "packed", [], id="pallas-packed"),
+    pytest.param("edge", "argmin", ["--target", "321", "--p2p-mode", "alt",
+                                    "--landmarks", "2"], id="edge-argmin-alt"),
+])
+def test_launcher_runs_on_cpu_with_verify(capsys, strategy, pred_mode, extra):
     from repro_torch.launch.sssp import main
     main(["--nodes", "400", "--degree", "6", "--strategy", strategy,
-          "--pred-mode", pred_mode, "--device", "cpu", "--verify"])
+          "--pred-mode", pred_mode, "--device", "cpu", "--verify"] + extra)
     out = capsys.readouterr().out
     assert "verify vs Dijkstra: OK" in out
+    if extra:
+        assert "(alt, k=2 landmark tables in" in out

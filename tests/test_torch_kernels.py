@@ -10,12 +10,12 @@ ELL block and lengths that are not a multiple of 1024. The CUDA kernels
 themselves are compared with the twins on the card by
 ``tests/test_torch_kernels_cuda.py``.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.graphs import generators as jgen
 from repro.graphs import structures as jst
 from repro.kernels.bucket_scan import bucket_scan as j_bucket_scan
@@ -55,10 +55,8 @@ INF = int(jst.INF32)
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 def _tent(rng, n, frac_inf=0.3, hi=400):

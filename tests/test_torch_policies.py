@@ -15,12 +15,12 @@ each JAX program compiles once per config.
 """
 import contextlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.api import BoundedRadius as JBoundedRadius
 from repro.api import Engine as JEngine
 from repro.api import MultiSource as JMultiSource
@@ -56,10 +56,8 @@ INF = 2**31 - 1
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 def _port_graph(jg):
@@ -285,8 +283,8 @@ def test_overflow_demotes_to_full_width_per_policy(policy):
 
 def test_non_delta_refusals_match_reference():
     """Grid plans are delta-only (ValueError at plan time), and the
-    landmark modes under a policy raise the reference's ValueError
-    before the port's landmark NotImplementedError."""
+    landmark modes under a policy raise the reference's ValueError,
+    while a delta plan answers them as the reference does."""
     g, free = grid_map(8, 8, 0.1, seed=0)
     cfg = DeltaConfig(delta=13, strategy="pallas", pred_mode="none",
                       policy="rho", rho=8)
@@ -299,8 +297,11 @@ def test_non_delta_refusals_match_reference():
         with pytest.raises(ValueError, match="delta"):
             plan.solve(PointToPoint(0, 5, mode=mode))
     delta = Engine(_port_graph(jg), DeltaConfig(), device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        delta.solve(PointToPoint(0, 5, mode="alt"))
+    r = delta.solve(PointToPoint(0, 5, mode="alt"))
+    ref = JEngine(jg, JDeltaConfig()).plan().solve(
+        JPointToPoint(0, 5, mode="alt"))
+    assert (r.distance, r.path) == (ref.distance, ref.path)
+    assert r.distance == delta.solve(PointToPoint(0, 5)).distance
 
 
 @pytest.mark.parametrize("policy", ["rho", "radius"])

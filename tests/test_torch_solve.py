@@ -13,10 +13,10 @@ the one instance that carries every adversarial feature.
 """
 import contextlib
 
-import jax
 import numpy as np
 import pytest
 
+from _torch_fixtures import fresh_caches_one_thread
 from repro.api import Engine as JEngine
 from repro.api import SingleSource as JSingleSource
 from repro.compat import enable_x64
@@ -35,10 +35,8 @@ N, M = 32, 96
 
 @pytest.fixture(scope="module", autouse=True)
 def _fresh_compile_caches():
-    # leave no compiled executables behind for the modules that follow
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+    with fresh_caches_one_thread():
+        yield
 
 
 def adversarial_coo(seed: int):
