@@ -84,7 +84,8 @@
    where ``ms`` or ``cold_ms`` falls below it),
    at each path's shapes (``bucket_scan`` runs on the small-world and
    the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
-   kernels line sums every path's counted runs (phases 3, 5, 8, 9);
+   kernels line sums every path's counted runs (phases 3, 5, 8, 9, 11,
+   12);
    ``by_path`` gives each path's launches and numbers, and the entry's
    ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
    weighted by those launches, so they move when a path is added.
@@ -133,21 +134,24 @@
    20 000 and 200 000 edges, 0.1 % and 1 % of |E|, each with two
    distinct weight assignments ``clip(w0 + U[-5, 5], 1, 20)``, cycled so
    no batch is a no-op). ``edge``, ``ell``, ``pallas`` and ``fused``
-   (argmin) and ``fused`` (packed): ``SingleSource(0)``, two warm-up
-   batches, then per k the counted ``plan.solve(UpdateBatch(...))``:
-   warm with ``repaired > 0``, ``dist``/``pred`` bitwise equal to every
-   other strategy's warm answer, to a fresh ``Engine``'s cold solve of
-   the updated graph on ``edge`` and to the plan's own
-   ``resolve(warm=False)`` on the others, ``dist`` equal to scipy's Dijkstra
-   once per k and ``pred`` a shortest-path tree, and launches equal to
-   the warm runs' own equations (``pallas`` on its rebuilt backend;
-   the ``fused`` twin by ``fused``'s; a twin overflow's full-width
-   re-run adds its own). Then, timed: three more batches (update +
-   warm resolve, split into update, host repair planning, warm backend,
-   device loop and the rest, each part checked to be timed, with host
-   syncs) and three ``resolve(warm=False)``,
-   the first held equal to the warm answer (at 1 % on the strategies
-   ``DYN_TIMED_1PCT`` only). ``rho`` and ``radius`` (k = 4) on ``edge``
+   (argmin) and ``fused`` (packed): ``SingleSource(0)``, then per k the
+   counted ``plan.solve(UpdateBatch(...))``: warm with ``repaired >
+   0``, ``dist``/``pred`` bitwise equal to the warm answer of every
+   other strategy on the same weights, to a fresh ``Engine``'s cold
+   solve of the updated graph on ``edge`` and to the plan's own
+   ``resolve(warm=False)`` on the others, ``dist`` equal to scipy's
+   Dijkstra once per k and ``pred`` a shortest-path tree, and launches
+   equal to the warm runs' own equations (``pallas`` on its rebuilt
+   backend; the ``fused`` twin by ``fused``'s; a twin overflow's
+   full-width re-run adds its own). The strategies ``DYN_TIMED``
+   (``edge``, ``pallas``) take two warm-up batches before the first
+   counted one and, after each, are timed: three more batches (update
+   + warm resolve, split into update, host repair planning, warm
+   backend, device loop and the rest, each part checked to be timed,
+   with host syncs) and three ``resolve(warm=False)``, the first held
+   equal to the warm answer. The others take the counted batches only
+   (so after the first k their weights are not ``edge``'s, and each is
+   held to its own ``resolve(warm=False)``). ``rho`` and ``radius`` (k = 4) on ``edge``
    and ``pallas``: one counted warm batch equal to the cold solve of
    the updated graph. ``square_lattice(1000, weighted=True)`` under
    ``edge``, ``pallas`` and ``fused``: the tree edge into the vertex
@@ -186,6 +190,40 @@
    launch counters are set to 0 after the game map's reference solve
    and read at the end of the phase: all four must read 0 (the landmark
    solves run an all-light ``EllBackend``; no kernel is on their path).
+
+11. The tuner (run after phase 9), on the 1 M-vertex small-world graph.
+   ``Engine(g)`` resolves the estimator's Δ without the hop-radius probe
+   (checked against ``estimate_delta``; its time printed). The measured
+   search ``tune(sources=(0,), strategies=("edge", "fused"),
+   policies=("delta",))`` over the estimator's Δ grid and both cap
+   fractions (n and n / 4) into a temporary cache, with the launch
+   counters set to 0 just before and read just after: ``frontier_relax``
+   and ``bucket_scan`` must have launched; every trial and the winner
+   are printed, and the candidates rejected on overflow. The tuned plan
+   through ``Tuning(measure=True, cache)`` must be a cache hit (its cap
+   re-validated on 3 sources), ``tuning=<path>`` must find the measured
+   record, and its ``SingleSource(0)`` must equal the explicit winner
+   config's bitwise (dist, pred, buckets, inner_iters, overflow),
+   scipy's, with a shortest-path tree. The launcher's ``--tune-cache``
+   must print the same record. One more solve of the fastest ``fused``
+   candidate keeps each kernel's largest input (``smallworld_tune``).
+12. The serving tier: ``Server(lane_width=8, max_resident=2)`` on CUDA
+   with three tenants — the 1 M graph under ``tuning=<phase 11's
+   cache>``, the same graph under ``DeltaConfig(strategy="fused")`` and
+   ``grid_map(512, 512, 0.1)`` as a grid plan (Δ = 13) — serves the
+   request mix of ``benchmarks/bench_serving.py:_traffic`` (copied; 48
+   requests from seed 0) and one ``SingleSource`` per tenant, through
+   the background batch loop (``with srv:``), with the counters set to
+   0 just before and read just after, each launch attributed to its
+   tenant's graph (``smallworld_serve``, ``gamemap_serve``). Every
+   ticket must be answered, but the grid's updates, which must be shed
+   as ``update_refused``; ``stats()`` must count them so and show
+   evictions and re-admissions; every answer must equal a serial
+   ``plan.solve`` of the same query on a fresh plan (dist and pred,
+   the matrix, a p2p distance with a valid path; a single source's
+   counters too), and the three appended answers scipy's. The serial
+   re-solves keep each kernel's largest input. ``stats()`` is printed:
+   p50/p99 latency, occupancy, batches, shed counts, evictions.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -244,14 +282,19 @@ M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
 M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
 SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 # phase 9: 0.1 % and 1 % of |E| per batch, two id sets per k (bench
-# protocol), the strategies timed at 1 %, and the lattice
+# protocol), the strategies timed, and the lattice
 DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
-DYN_TIMED_1PCT = ("edge", "pallas")
+DYN_TIMED = ("edge", "pallas")
 LATTICE_SIDE, LATTICE_STRATEGIES = 1000, ("edge", "pallas", "fused")
 # phase 10: landmarks per plan, the update batch size (phase 9's
 # protocol), the point-to-point modes
 LANDMARK_K, LM_DYN_K = 4, 20_000
 LM_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
+# phase 11: the search's axes (with the estimator's Δ grid and both cap
+# fractions); phase 12: lanes, resident plans, the requests of the mix
+# and the edges per update (benchmarks/bench_serving.py's)
+TUNE_STRATEGIES, TUNE_POLICIES = ("edge", "fused"), ("delta",)
+SERVE_LANES, SERVE_RESIDENT, SERVE_REQUESTS, SERVE_UPDATE_EDGES = 8, 2, 48, 16
 
 
 def check(cond, what: str) -> None:
@@ -1308,12 +1351,14 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
         # timed; the second k: the counted one, then three timed
         warmups, counted_b = (seq[:2], seq[2]) if first else ([], seq[0])
         timed_b = [seq[3], seq[0], seq[1]] if first else seq[1:4]
-        agreed = oracle = None
+        oracle = None
+        refs = []       # (weights, warm answer, plan) of this k, per weights
         for key in keys:
             st, pm = key
             plan = plans[key]
-            for ids, w in warmups:
-                plan.solve(UpdateBatch(ids, w))
+            if st in DYN_TIMED:      # timing warm-ups
+                for ids, w in warmups:
+                    plan.solve(UpdateBatch(ids, w))
             res, got, split = counted(plan, UpdateBatch(*counted_b),
                                       sw_rec, launches_sw)
             t = res.telemetry
@@ -1330,9 +1375,13 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 log(f"[dyn] k={k}: {st}/{pm} warm dist == scipy dijkstra on "
                     f"the updated graph, pred tree ok (oracle "
                     f"{time.perf_counter() - t0:.1f} s)")
-                agreed = res
-            check(same_answer(res, agreed),
-                  f"{st}/{pm} k={k}: warm answer differs from edge's")
+            ref = next((r for r in refs if torch.equal(r[0], plan.graph.w)),
+                       None)
+            if ref is None:
+                refs.append((plan.graph.w, res, f"{st}/{pm}"))
+            else:
+                check(same_answer(res, ref[1]), f"{st}/{pm} k={k}: warm "
+                      f"answer differs from {ref[2]}'s on the same weights")
             if st == "edge":
                 # a fresh Engine of the ELL strategies is a host ELL build
                 # (~3 s at 1 M); they are held to edge's warm answer and to
@@ -1344,7 +1393,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 check(same_answer(res, fresh),
                       f"{st}/{pm} k={k}: warm != a fresh Engine's cold solve")
                 fresh_note = f"== a fresh Engine ({walls[0]:.0f} ms)"
-            elif first or st in DYN_TIMED_1PCT:
+            elif st in DYN_TIMED:
                 fresh_note = "(held to resolve(warm=False) below)"
             else:
                 cold, walls = walls_ms(
@@ -1352,7 +1401,8 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 check(same_answer(res, cold) and not cold.telemetry.warm,
                       f"{st}/{pm} k={k}: warm != resolve(warm=False)")
                 fresh_note = f"== resolve(warm=False) ({walls[0]:.0f} ms)"
-            log(f"[dyn] {st}/{pm} k={k}: warm {fresh_note}, == edge's; "
+            log(f"[dyn] {st}/{pm} k={k}: warm {fresh_note}"
+                + ("" if ref is None else f", == {ref[2]}'s") + "; "
                 f"buckets={t.buckets} inner_iters={t.inner_iters} "
                 f"repaired={t.repaired} cone={t.cone} "
                 f"host_syncs={plan.host_syncs} runs {split.runs} launches "
@@ -1360,7 +1410,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 f"{split.ms['update']:.1f}, planning "
                 f"{split.ms['planning']:.1f}, warm backend "
                 f"{split.ms['twin']:.1f}, loop {split.ms['loop']:.1f} ms")
-            if first or st in DYN_TIMED_1PCT:
+            if st in DYN_TIMED:
                 # timed: three cold re-solves (the first held to the warm
                 # answer), then three batches after the counted one
                 cold, walls = walls_ms(
@@ -1699,6 +1749,383 @@ def landmark_path(torch, np, cuda, g, ref_dist, keyed, counters):
     log(f"[landmarks] far-target medians (ms): " + ", ".join(
         f"{m} {walls[(m, 'far')]:.1f}" for m in LM_MODES))
     log(f"[landmarks] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phases 11 and 12: the tuner and the serving tier -----------------------
+
+class ByGraph:
+    """While active, wraps the kernel dispatchers of ``core.backends``
+    named in ``counters`` and adds the launches each call makes (its
+    counter's growth over the call) to the path ``path_of(n)`` names for
+    the length ``n`` of the call's distance input: the tenants of one
+    server run interleaved on one thread, and their graphs' sizes tell
+    their launches apart. No tensor is read, so the wrapped run makes no
+    extra device work or synchronisation."""
+
+    def __init__(self, backends, counters, path_of):
+        self.backends, self.counters = backends, counters
+        self.path_of = path_of
+        self.launches = {}
+
+    def __enter__(self):
+        self.real = {name: getattr(self.backends, name)
+                     for name in self.counters}
+        for name in self.counters:
+            setattr(self.backends, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.backends, name, fn)
+
+    def _wrap(self, name):
+        real, counter = self.real[name], self.counters[name]
+        dist = Largest.DIST[name]
+
+        def wrapped(*args, **kw):
+            before = counter.launches
+            out = real(*args, **kw)
+            path = self.launches.setdefault(
+                self.path_of(args[dist].numel()), dict.fromkeys(
+                    self.counters, 0))
+            path[name] += counter.launches - before
+            return out
+        return wrapped
+
+
+def tuning_path(torch, np, cuda, g, ref_dist, keyed, counters):
+    """Phase 11: the tuner on the 1 M-vertex small-world graph (see the
+    module note). Returns the launches of the measured search, each
+    kernel's recorded input with the largest frontier from one more
+    solve of the fastest ``fused`` candidate, the tuning cache's path
+    and the directory that holds it (kept alive for phase 12)."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    import repro_torch.core.backends as backends
+    from repro_torch.api import Engine, SingleSource, Tuning
+    from repro_torch.core import DeltaConfig
+    from repro_torch.launch.sssp import main as sssp_main
+    from repro_torch.tune import (TuningCache, candidate_configs,
+                                  estimate_delta, graph_stats, tune)
+
+    t_phase = time.perf_counter()
+    n = g.n_nodes
+    gd = g.to(cuda)
+
+    # -- 11a. Engine(g): the estimator, without the hop-radius probe -------
+    t0 = time.perf_counter()
+    plan = Engine(gd, device=cuda).plan()
+    resolve_ms = (time.perf_counter() - t0) * 1e3
+    est = estimate_delta(graph_stats(g, probe_ecc=False))
+    check(plan.config.delta == est and plan.record.source == "heuristic"
+          and plan.record.fingerprint == ""
+          and plan.explain()["tuning_source"] == "heuristic",
+          "Engine(g): not the estimator's operating point")
+    log(f"[tune] Engine(g).plan(): Δ={plan.config.delta} == estimate_delta, "
+        f"strategy={plan.config.strategy}, record=heuristic (no hop-radius "
+        f"probe), resolved in {resolve_ms:.1f} ms")
+
+    # -- 11b. the measured search ----------------------------------------
+    t0 = time.perf_counter()
+    stats = graph_stats(gd)
+    stats_s = time.perf_counter() - t0
+    cands = candidate_configs(stats, strategies=TUNE_STRATEGIES,
+                              policies=TUNE_POLICIES)
+    deltas = sorted({c[0] for c in cands})
+    n_fused = sum(1 for c in cands if c[1] == "fused")
+    check(len(cands) == 3 * len(deltas) and n_fused == 2 * len(deltas),
+          "the candidate grid is not Δ x (edge, fused at cap n and n/4)")
+    log(f"[tune] graph_stats (hop-radius probe included) {stats_s:.2f} s; "
+        f"estimate Δ={est}, grid Δ={deltas}: {len(cands)} candidates, "
+        f"{n_fused} fused")
+    keep = tempfile.TemporaryDirectory()
+    path = os.path.join(keep.name, "tuning.json")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rec = tune(gd, sources=(0,), strategies=TUNE_STRATEGIES,
+               policies=TUNE_POLICIES, cache=TuningCache(path), device=cuda)
+    search_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches["frontier_relax"] > 0 and launches["bucket_scan"] > 0,
+          "the search did not launch frontier_relax and bucket_scan")
+    check(rec.source == "measured" and 0 < len(rec.trials) <= len(cands),
+          "the search returned no measured record")
+    measured = {t[:4] for t in rec.trials}
+    rejected = [c for c in cands
+                if (c[0], c[1], -1 if c[2] is None else c[2], c[3])
+                not in measured]
+    log(f"[tune] tune(sources=(0,), strategies={TUNE_STRATEGIES}, "
+        f"policies={TUNE_POLICIES}) in {search_s:.1f} s; launches "
+        f"{json.dumps(launches)}; rejected (overflow) {rejected}")
+    for d, s, c, p, us in rec.trials:
+        log(f"[tune]   trial Δ={d} {s} cap={c} {p}: {us / 1e3:.1f} ms")
+    log(f"[tune] winner: Δ={rec.delta} strategy={rec.strategy} "
+        f"cap={rec.frontier_cap} policy={rec.policy}, "
+        f"{rec.us_per_solve / 1e3:.1f} ms a solve")
+
+    # -- 11c. the tuned plan: a cache hit, its cap re-validated ------------
+    hit_sources = [0, n // 3, n - 1]
+    t0 = time.perf_counter()
+    tplan = Engine(gd, tuning=Tuning(measure=True, cache=path),
+                   device=cuda).plan(sources=hit_sources)
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    check(tplan.explain()["tuning_source"] == "cache"
+          and dataclasses.replace(tplan.record, source="measured") == rec,
+          "the tuned plan is not the cached record")
+    check(tplan.config.frontier_cap in (rec.frontier_cap, None),
+          "the tuned plan's cap is neither the record's nor dropped")
+    restart = Engine(gd, tuning=path, device=cuda).plan(sources=hit_sources)
+    check(restart.record == rec and restart.config == tplan.config,
+          "tuning=<cache path> did not find the measured record")
+    r = tplan.solve(SingleSource(0))
+    explicit = Engine(gd, DeltaConfig(
+        delta=rec.delta, strategy=rec.strategy, frontier_cap=rec.frontier_cap,
+        policy=rec.policy), device=cuda).plan().solve(SingleSource(0))
+    check(torch.equal(r.dist, explicit.dist)
+          and torch.equal(r.pred, explicit.pred)
+          and (r.telemetry.buckets, r.telemetry.inner_iters,
+               r.telemetry.overflow) ==
+          (explicit.telemetry.buckets, explicit.telemetry.inner_iters,
+           explicit.telemetry.overflow),
+          "the tuned solve differs from the explicit winner config's")
+    dist = r.dist.cpu().numpy()
+    check(np.array_equal(dist.astype(np.int64), ref_dist),
+          "the tuned solve differs from the scipy oracle")
+    check_tree(dist, r.pred.cpu().numpy(), 0, keyed)
+    cap_note = ("no cap to re-validate" if rec.frontier_cap is None else
+                f"cap {rec.frontier_cap} re-validated on {hit_sources}: "
+                + ("kept" if tplan.config.frontier_cap else "dropped"))
+    log(f"[tune] Engine(g, tuning=Tuning(measure=True, cache)).plan("
+        f"sources={hit_sources}): cache hit in {hit_ms:.1f} ms ({cap_note}); "
+        f"tuning=<path> finds the measured record; SingleSource(0) == the "
+        f"explicit winner config (dist, pred, buckets={r.telemetry.buckets}, "
+        f"inner_iters={r.telemetry.inner_iters}) == scipy, pred tree ok")
+
+    # -- 11d. the launcher's --tune-cache finds the same record ------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        sssp_main(["--nodes", str(N_NODES), "--degree", str(DEGREE),
+                   "--p", str(P_REWIRE), "--tune-cache", path])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(line)
+    want = (f"[sssp] tuned config: Δ={rec.delta} strategy={rec.strategy} "
+            f"policy={rec.policy} cap={rec.frontier_cap} record=measured")
+    check(any(line.startswith(want) for line in lines),
+          "the launcher's --tune-cache did not find the measured record")
+    log(f"[tune] launcher --tune-cache: same record "
+        f"({time.perf_counter() - t0:.1f} s with the graph's generation)")
+
+    # -- 11e. the fastest fused candidate's kernel inputs ------------------
+    d, _, c, p, _ = next(t for t in rec.trials if t[1] == "fused")
+    cfg = DeltaConfig(delta=d, strategy="fused", policy=p, pred_mode="none",
+                      frontier_cap=None if c < 0 else c)
+    fplan = Engine(gd, cfg, device=cuda).plan()
+    with Largest(backends, frontier_sizes(n, ("bucket_scan",
+                                              "frontier_relax"))) as big:
+        fr = fplan.solve(SingleSource(0))
+        torch.cuda.synchronize()
+    check(np.array_equal(fr.dist.cpu().numpy().astype(np.int64), ref_dist),
+          "the fastest fused candidate differs from the scipy oracle")
+    check(set(big.best) == {"bucket_scan", "frontier_relax"},
+          "the fused candidate recorded no kernel input")
+    log(f"[tune] fastest fused candidate Δ={d} cap={c}: dist == scipy; "
+        "largest frontiers " + ", ".join(
+            f"{k} {v[2]}" for k, v in big.best.items()))
+    log(f"[tune] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, big.best, path, keep
+
+
+def serve_traffic(np, graphs, n_requests: int, seed: int = 0):
+    """The request mix of ``benchmarks/bench_serving.py:_traffic``
+    (copied): ~55 % single-source, ~25 % point-to-point, ~12 % bounded
+    radius with radius U[20, 200), ~4 % many-to-many of LANE x LANE,
+    ~4 % updates of 16 edges (weights moved by U[-3, 3], at least 1),
+    over the tenants in ``graphs``, from ``seed``."""
+    from repro_torch.api import (BoundedRadius, ManyToMany, PointToPoint,
+                                 SingleSource, UpdateBatch)
+
+    rng = np.random.default_rng(seed)
+    names = sorted(graphs)
+    out = []
+    for _ in range(n_requests):
+        name = names[int(rng.integers(len(names)))]
+        g = graphs[name]
+        src = int(rng.integers(g.n_nodes))
+        kind = rng.random()
+        if kind < 0.55:
+            q = SingleSource(src)
+        elif kind < 0.80:
+            q = PointToPoint(src, int(rng.integers(g.n_nodes)))
+        elif kind < 0.92:
+            q = BoundedRadius(src, int(rng.integers(20, 200)))
+        elif kind < 0.96:
+            srcs = rng.integers(g.n_nodes, size=SERVE_LANES).tolist()
+            tgts = rng.integers(g.n_nodes, size=SERVE_LANES).tolist()
+            q = ManyToMany(srcs, tgts, tile=SERVE_LANES)
+        else:
+            ids = rng.choice(g.n_edges, size=SERVE_UPDATE_EDGES,
+                             replace=False)
+            neww = np.clip(g.w.cpu().numpy()[ids]
+                           + rng.integers(-3, 4, SERVE_UPDATE_EDGES), 1, None)
+            q = UpdateBatch(ids, neww)
+        out.append((name, q))
+    return out
+
+
+def serving_path(torch, np, cuda, g, ref_dist, keyed, counters, cache_path):
+    """Phase 12: the serving tier on the card (see the module note).
+    Returns each tenant path's launches (``smallworld_serve``,
+    ``gamemap_serve``) and its kernels' recorded inputs with the largest
+    frontier, from the serial re-solves of the same queries."""
+    import contextlib
+
+    import repro_torch.core.backends as backends
+    from repro_torch.api import (BoundedRadius, Engine, ManyToMany,
+                                 PointToPoint, SingleSource, UpdateBatch,
+                                 UpdateRefused)
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import grid_map
+    from repro_torch.serve import RequestRejected, Server
+
+    t_phase = time.perf_counter()
+    gm, free = grid_map(SMALL_SIDE, SMALL_SIDE, OBSTACLES, seed=0)
+    gsrc = int(np.flatnonzero(free.ravel())[0])
+    gref, gkeyed = oracle_dist(gm, gsrc)
+    graphs = {"fused": g, "map": gm, "tuned": g}
+    configs = {"fused": DeltaConfig(delta=DELTA, strategy="fused"),
+               "map": DeltaConfig(delta=GRID_DELTA, strategy="pallas"),
+               "tuned": None}
+    masks = {"fused": None, "map": free, "tuned": None}
+    # the mix, then one SingleSource per tenant whose answer scipy checks
+    stream = serve_traffic(np, graphs, SERVE_REQUESTS) + [
+        ("tuned", SingleSource(0)), ("fused", SingleSource(0)),
+        ("map", SingleSource(gsrc))]
+    kinds = {}
+    for name, q in stream:
+        key = f"{name}/{type(q).__name__}"
+        kinds[key] = kinds.get(key, 0) + 1
+    log(f"[serve] {len(stream)} requests: {json.dumps(kinds)}")
+
+    srv = Server(lane_width=SERVE_LANES, max_resident=SERVE_RESIDENT,
+                 device=cuda)
+    srv.admit("tuned", g, tuning=cache_path)
+    srv.admit("fused", g, config=configs["fused"])
+    srv.admit("map", gm, config=configs["map"], free_mask=free)
+
+    def path_of(numel):
+        return "gamemap_serve" if numel <= gm.n_nodes else "smallworld_serve"
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with ByGraph(backends, counters, path_of) as split:
+        with srv:                               # the background batch loop
+            tickets = [srv.submit(q, graph=name) for name, q in stream]
+    serve_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_path = {p: split.launches.get(p, dict.fromkeys(counters, 0))
+               for p in ("smallworld_serve", "gamemap_serve")}
+    check(all(sum(v[k] for v in by_path.values()) == launches[k]
+              for k in counters), "a launch of phase 12 has no path")
+    check(by_path["smallworld_serve"]["frontier_relax"] > 0
+          and by_path["gamemap_serve"]["grid_relax"] > 0
+          and by_path["gamemap_serve"]["bucket_scan"] > 0,
+          "the fused tenant did not launch frontier_relax or the map "
+          "tenant grid_relax and bucket_scan")
+    stats = srv.stats()
+    log(f"[serve] served in {serve_s:.1f} s (the tenants' plan builds "
+        f"included); launches {json.dumps(by_path)}")
+
+    # -- 12a. every ticket: an answer, or the grid's refused update -------
+    refused = 0
+    for (name, q), t in zip(stream, tickets):
+        exc = t.exception(0)
+        if name == "map" and isinstance(q, UpdateBatch):
+            check(isinstance(exc, RequestRejected)
+                  and exc.reason == "update_refused",
+                  "the grid tenant's update was not shed as update_refused")
+            refused += 1
+        else:
+            check(exc is None, f"{name} {type(q).__name__}: ended in "
+                  f"{type(exc).__name__}: {exc}")
+    check(stats["shed"] == ({"update_refused": refused} if refused else {})
+          and stats["completed"] == len(stream) - refused,
+          "stats() counts off the tickets")
+    check(stats["evictions"] > 0 and stats["plans_built"] > len(graphs),
+          "no tenant was evicted and re-admitted")
+
+    # -- 12b. every answer bitwise a serial plan.solve on a fresh plan -----
+    sizes = frontier_sizes(N_NODES, ("bucket_scan", "frontier_relax"))
+    records = {}
+    for name, graph in graphs.items():
+        t0 = time.perf_counter()
+        plan = Engine(graph, configs[name], free_mask=masks[name],
+                      tuning=cache_path if name == "tuned" else None,
+                      device=cuda).plan(fallback=True)
+        mine = [(q, t) for (n_, q), t in zip(stream, tickets) if n_ == name]
+        watch = (Largest(backends, sizes) if name == "fused" else
+                 Largest(backends, frontier_sizes(
+                     gm.n_nodes, ("bucket_scan", "grid_relax")))
+                 if name == "map" else None)
+        with watch if watch is not None else contextlib.nullcontext():
+            for q, t in mine:
+                if isinstance(q, UpdateBatch):
+                    try:
+                        plan.update(q.edge_ids, q.new_weights)
+                    except UpdateRefused:
+                        continue    # shed by the server too: no change
+                    continue
+                ref, got = plan.solve(q), t.result(0)
+                tag = f"{name} {type(q).__name__}"
+                if isinstance(q, (SingleSource, BoundedRadius)):
+                    check(torch.equal(got.dist, ref.dist)
+                          and torch.equal(got.pred, ref.pred),
+                          f"{tag}: differs from the serial solve")
+                elif isinstance(q, ManyToMany):
+                    check(torch.equal(got.matrix, ref.matrix),
+                          f"{tag}: differs from the serial solve")
+                else:
+                    check(got.distance == ref.distance,
+                          f"{tag}: distance differs from the serial solve")
+                    if got.path is not None:
+                        check_path(got.path, q.source, q.target, got.distance,
+                                   gkeyed if name == "map" else keyed,
+                                   graph.n_nodes)
+                if isinstance(q, SingleSource):
+                    tel, rtel = got.telemetry, ref.telemetry
+                    check((tel.buckets, tel.inner_iters, tel.overflow) ==
+                          (rtel.buckets, rtel.inner_iters, rtel.overflow),
+                          f"{tag}: counters differ from the serial solve")
+            torch.cuda.synchronize()
+        if watch is not None:
+            records["smallworld_serve" if name == "fused"
+                    else "gamemap_serve"] = watch.best
+        log(f"[serve] {name}: {len(mine)} tickets == serial solves on a "
+            f"fresh plan ({plan.config.strategy}, Δ={plan.config.delta}) "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+    # -- 12c. one answer per tenant against scipy --------------------------
+    for (name, q), t in zip(stream[-3:], tickets[-3:]):
+        want = gref if name == "map" else ref_dist
+        check(np.array_equal(t.result(0).dist.cpu().numpy().astype(np.int64),
+                             want), f"{name}: SingleSource differs from scipy")
+    log("[serve] SingleSource(0) on tuned and fused, and the map's from "
+        f"cell {gsrc}: == scipy")
+    log("[serve] stats: " + json.dumps(stats))
+    log(f"[serve] p50 {stats['latency_p50_ms']:.1f} ms, p99 "
+        f"{stats['latency_p99_ms']:.1f} ms, mean occupancy "
+        f"{stats['mean_occupancy']:.3f}, batches {stats['batches']}, shed "
+        f"{stats['shed']}, evictions {stats['evictions']}, plans built "
+        f"{stats['plans_built']}")
+    log(f"[serve] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path, records
 
 
 def main() -> int:
@@ -2074,6 +2501,19 @@ def main() -> int:
         torch, np, cuda, g, plans, counters)
     by_path.update(smallworld_warm=launches_dyn, lattice_warm=launches_lat)
     records.update(dyn_records)
+
+    # -- 11. the tuner: estimator, measured search, cache, launcher --------
+    launches_tune, tune_records, cache_path, cache_dir = tuning_path(
+        torch, np, cuda, g, ref_dist, keyed, counters)
+    by_path["smallworld_tune"] = launches_tune
+    records["smallworld_tune"] = tune_records
+
+    # -- 12. the serving tier: three tenants, the bench's traffic mix ------
+    serve_launches, serve_records = serving_path(
+        torch, np, cuda, g, ref_dist, keyed, counters, cache_path)
+    cache_dir.cleanup()
+    by_path.update(serve_launches)
+    records.update(serve_records)
     launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     kernels = []

@@ -1,7 +1,7 @@
 """Query/Plan façade of the PyTorch port.
 
     from repro_torch.api import (BoundedRadius, Engine, PointToPoint,
-                                 SingleSource)
+                                 SingleSource, Tuning)
     from repro_torch.core import DeltaConfig
     from repro_torch.graphs import grid_map
 
@@ -19,8 +19,21 @@
     # bidirectional search (same distance as early exit)
     plan.prepare_landmarks(k=4)
     plan.solve(PointToPoint(0, g.n_nodes - 1, mode="alt_bidirectional"))
+
+    # tuning: the estimator's Δ, or a measured search kept in a cache
+    plan = Engine(graph).plan()
+    plan = Engine(graph, tuning=Tuning(measure=True,
+                                       cache="tuning.json")).plan(
+        sources=[0])
+    plan.explain()["tuning_source"]       # "measured", later "cache"
 """
-from repro_torch.api.engine import Engine, LandmarkRefused, Plan, UpdateRefused
+from repro_torch.api.engine import (
+    Engine,
+    LandmarkRefused,
+    Plan,
+    Tuning,
+    UpdateRefused,
+)
 from repro_torch.api.paths import extract_path, stitch_bidirectional_path
 from repro_torch.api.queries import (
     BoundedRadius,
@@ -56,6 +69,7 @@ __all__ = [
     "SingleSource",
     "SingleSourceResult",
     "Telemetry",
+    "Tuning",
     "UpdateBatch",
     "UpdateRefused",
     "extract_path",

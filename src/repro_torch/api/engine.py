@@ -49,21 +49,35 @@ words and non-delta policies with ``ValueError`` and edge-weight
 updates with ``UpdateRefused(reason="grid_costs")``, as the reference
 does.
 
+Resolution (DESIGN.md §7/§10) happens in one place, ``Engine.plan``,
+steered by the one ``tuning=`` knob, as in the reference: a concrete
+``DeltaConfig`` with ``tuning=None`` is used as is; ``tuning="auto"`` /
+``"measure"`` / a cache path / a ``Tuning(...)``, with any concrete
+config as the tuning *base*, goes through ``tune.resolve_record`` on the
+engine's device, which re-validates a tuning-chosen ``frontier_cap``
+against ``plan(sources=...)`` (dropped on overflow) or drops it when the
+plan cannot know its sources. The winning ``TuningRecord`` attaches to
+the plan (``plan.record``, ``explain()["tuning_source"]``) and survives
+``update``. ``Engine(graph)`` means ``tuning="auto"``; ``config="auto"``,
+``tune=`` and ``tune_cache=`` are deprecated spellings of the same. With
+a persistent cache, radius-stepping's radii persist beside it
+(``<cache>.radii``).
+
 Device: ``device=None`` means ``"cuda"``. Without a CUDA device the
 engine raises unless the caller asked for ``device="cpu"``; it never
 falls back to the CPU quietly. On CUDA the ``pallas`` and ``fused``
 strategies launch the hand-written kernels; on the CPU their twins run.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): tuning (``Engine(graph)`` without a config, ROADMAP Queue 1 item
-2) and the sharded strategies (item 5).
+Not ported yet: the sharded strategies (``NotImplementedError`` naming
+ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from functools import partial
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -110,7 +124,7 @@ from repro_torch.core.delta_stepping import (
     _run_policy_warm,
     pred_argmin,
 )
-from repro_torch.core.policies import make_policy
+from repro_torch.core.policies import RadiiStore, make_policy
 from repro_torch.core.grid import free_mask_tensor
 from repro_torch.device import resolve_device
 from repro_torch.dynamic import Resident, apply_weight_update, plan_repair
@@ -155,6 +169,39 @@ class LandmarkRefused(UpdateRefused):
     """
 
 
+@dataclasses.dataclass(frozen=True)
+class Tuning:
+    """The one tuning knob of ``Engine``: how the operating point is
+    resolved. ``measure=True`` runs the successive-halving measured
+    search (DESIGN.md §7); ``cache`` names the persistent fingerprint-
+    keyed record store consulted first (and written back after a
+    measured search). ``Tuning()`` is the zero-measurement estimator,
+    spelled ``tuning="auto"``; ``tuning="measure"`` is
+    ``Tuning(measure=True)``; any other string is a cache path.
+
+    >>> Tuning(measure=True, cache="tuning.json").measure
+    True
+    """
+
+    measure: bool = False
+    cache: Optional[str] = None
+
+
+def _normalize_tuning(tuning) -> Optional[Tuning]:
+    if tuning is None or isinstance(tuning, Tuning):
+        return tuning
+    if isinstance(tuning, str):
+        if tuning == "auto":
+            return Tuning()
+        if tuning == "measure":
+            return Tuning(measure=True)
+        return Tuning(cache=tuning)
+    raise ValueError(
+        "tuning must be None, 'auto', 'measure', a cache path or a "
+        f"Tuning(...), got {tuning!r}"
+    )
+
+
 def _mark_fallback(res: Result) -> Result:
     tel = dataclasses.replace(res.telemetry, fallback=True)
     return dataclasses.replace(res, telemetry=tel)
@@ -178,12 +225,16 @@ class Plan:
     """A built operating point for one graph: config, relaxation backend,
     the solve drivers of its frontier policy, and the device the solve
     runs on; updatable in place for dynamic edge costs via ``update`` /
-    ``resolve``. ``host_syncs`` holds the host synchronisations of the
-    last query (summed over its lanes, tiles, a fallback's two solves,
-    or a warm re-solve's two runs when the repair twin overflowed)."""
+    ``resolve``. ``record`` is the ``TuningRecord`` the config came from
+    (``None`` for a concrete config); ``radii_store`` a directory where
+    radius-stepping's radii persist. ``host_syncs`` holds the host
+    synchronisations of the last query (summed over its lanes, tiles, a
+    fallback's two solves, or a warm re-solve's two runs when the repair
+    twin overflowed)."""
 
     def __init__(self, graph: COOGraph, config: DeltaConfig, *,
-                 free_mask=None, fallback: bool = False):
+                 free_mask=None, record=None, fallback: bool = False,
+                 radii_store: Optional[str] = None):
         if config.policy != "delta" and (
                 free_mask is not None and config.strategy == "pallas"):
             # a grid plan (make_backend's routing): the stencil
@@ -194,10 +245,14 @@ class Plan:
                 f"policy={config.policy!r} needs a mask-driven backend")
         self.graph = graph
         self.config = config
+        self.record = record
         self.device = graph.device
         self.backend = make_backend(graph, config, free_mask=free_mask)
         self._packed = config.pred_mode == "packed"
-        self._policy = make_policy(graph, config)
+        # radius-stepping's radii persist beside the tuning cache when the
+        # engine hands a store directory down
+        self._radii = None if radii_store is None else RadiiStore(radii_store)
+        self._policy = make_policy(graph, config, store=self._radii)
         self._bind_drivers()
         # the one overflow-fallback point: only armed when a capped
         # compaction can overflow
@@ -348,7 +403,8 @@ class Plan:
         self._graph_version += 1
         if self.config.policy == "radius":
             self._policy = (policy if policy is not None
-                            else make_policy(graph, self.config))
+                            else make_policy(graph, self.config,
+                                             store=self._radii))
             self._bind_drivers()
 
     def _rebuild_backend(self, graph: COOGraph):
@@ -543,9 +599,9 @@ class Plan:
 
     def explain(self) -> dict:
         """Plan provenance: the operating point, the landmark count of
-        the resident tables, whether the overflow fallback has demoted
-        the plan, and the resident source. Tuning is not ported (ROADMAP
-        Queue 1 item 2), so ``tuning_source`` is ``None``."""
+        the resident tables, the source of the tuning record it came from
+        (``None`` for a concrete config), whether the overflow fallback
+        has demoted the plan, and the resident source."""
         cfg = self.config
         return {
             "delta": cfg.delta,
@@ -557,7 +613,8 @@ class Plan:
             "p2p_mode": cfg.p2p_mode,
             "landmarks": (None if self.landmark_tables is None
                           else self.landmark_tables.k),
-            "tuning_source": None,
+            "tuning_source": (None if self.record is None
+                              else self.record.source),
             "fallback_taken": self._demoted is not None,
             "resident_source": (None if self._resident is None
                                 else self._resident.source),
@@ -695,33 +752,95 @@ class Plan:
 
 class Engine:
     """Façade entry point: holds the graph (and a game map's occupancy
-    mask), moved to ``device``, and a concrete ``DeltaConfig``, and
-    mints ``Plan``s."""
+    mask), moved to ``device``, and the tuning inputs, and mints
+    ``Plan``s. ``config`` is a concrete ``DeltaConfig`` (used as is, or
+    as the tuning *base* whose non-searched fields carry into the
+    resolved plan) or ``None``; ``tuning`` is ``None`` (the concrete
+    config as is), ``"auto"`` (zero-measurement estimator),
+    ``"measure"`` (measured search), a cache path, or a
+    ``Tuning(measure=..., cache=...)``. ``Engine(graph)`` with neither
+    means ``tuning="auto"``. ``config="auto"``, ``tune=True`` and
+    ``tune_cache=path`` are deprecated spellings of the same."""
 
-    def __init__(self, graph: COOGraph, config: Optional[DeltaConfig] = None,
-                 *, free_mask=None, tuning=None, device=None):
-        if config is None or isinstance(config, str) or tuning is not None:
-            raise NotImplementedError(
-                "tuning (Engine(graph), config='auto', tuning=...) is not "
-                "ported to repro_torch yet (ROADMAP Queue 1 item 2); pass "
-                "a concrete DeltaConfig")
+    def __init__(
+        self,
+        graph: COOGraph,
+        config: Union[DeltaConfig, str, None] = None,
+        *,
+        free_mask=None,
+        tuning: Union[Tuning, str, None] = None,
+        tune: bool = False,
+        tune_cache: Optional[str] = None,
+        device=None,
+    ):
+        if isinstance(config, str):
+            if config != "auto":
+                raise ValueError(
+                    f"unknown config string {config!r} (did you mean "
+                    "'auto' or a DeltaConfig?)"
+                )
+            warnings.warn(
+                "config='auto' is deprecated: use Engine(graph, "
+                "tuning='auto') (or just Engine(graph))",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            config = None
+            if tuning is None and not (tune or tune_cache is not None):
+                tuning = "auto"
+        if tune or tune_cache is not None:
+            warnings.warn(
+                "tune=/tune_cache= are deprecated: use tuning="
+                "Tuning(measure=..., cache=...)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            if tuning is None:
+                tuning = Tuning(measure=bool(tune), cache=tune_cache)
+        if config is None and tuning is None:
+            tuning = "auto"  # Engine(graph) keeps its auto-resolve default
         self.device = resolve_device(device)
         self.graph = graph.to(self.device)
         self.config = config
         self.free_mask = (None if free_mask is None else
                           free_mask_tensor(free_mask, self.device))
+        self._tuning = _normalize_tuning(tuning)
 
     def plan(self, *, sources: Optional[Sequence[int]] = None,
              fallback: bool = False) -> Plan:
-        """Build the ``Plan``. ``sources`` only feeds tuning in the
-        reference (a tuned frontier cap is validated against them);
-        tuning is not ported (ROADMAP Queue 1 item 2), so it is accepted
-        and unused. ``fallback=True`` arms the overflow fallback of a
+        """Resolve the operating point once and build the ``Plan``.
+        ``sources`` are the vertices the caller will solve from: a
+        tuning-chosen ``frontier_cap`` is validated against exactly
+        those and dropped on overflow; ``sources=None`` drops a tuned
+        cap outright. ``fallback=True`` arms the overflow fallback of a
         plan with a ``frontier_cap``."""
-        del sources
-        return Plan(self.graph, self.config, free_mask=self.free_mask,
-                    fallback=fallback)
+        cfg, record = self._resolve(sources)
+        return Plan(self.graph, cfg, free_mask=self.free_mask, record=record,
+                    fallback=fallback, radii_store=self._radii_store_path())
+
+    def _radii_store_path(self) -> Optional[str]:
+        """Radius-stepping's radii live beside the tuning cache
+        (``<cache>.radii/``) when the engine has a persistent cache."""
+        if self._tuning is not None and self._tuning.cache:
+            return f"{self._tuning.cache}.radii"
+        return None
+
+    def _resolve(self, sources):
+        if self._tuning is None:
+            return self.config, None  # concrete config, no tuning: as is
+        from repro_torch.tune import resolve_record  # tune builds on core
+
+        base = DeltaConfig() if self.config is None else self.config
+        return resolve_record(
+            self.graph,
+            base,
+            free_mask=self.free_mask,
+            cache_path=self._tuning.cache,
+            measure=self._tuning.measure,
+            sources=sources,
+            device=self.device,
+        )
 
 
-__all__ = ["Engine", "LandmarkRefused", "Plan", "UpdateRefused",
+__all__ = ["Engine", "LandmarkRefused", "Plan", "Tuning", "UpdateRefused",
            "resolve_device"]

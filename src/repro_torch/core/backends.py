@@ -492,7 +492,15 @@ def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
     """Route a (graph, config) pair to its backend. ``free_mask`` marks
     the game-map graph class: under ``strategy='pallas'`` it selects the
     grid-stencil kernel instead of the ELL kernels (other strategies
-    ignore it). The sharded strategies are not ported yet and raise."""
+    ignore it). ``cfg="auto"`` consults the tuner (the zero-measurement
+    estimator, DESIGN.md §7) on the graph's device. The sharded
+    strategies are not ported yet and raise."""
+    if isinstance(cfg, str):
+        from repro_torch.tune import resolve_config   # tune imports core
+        if cfg != "auto":
+            raise ValueError(f"unknown config string {cfg!r}")
+        cfg = resolve_config(graph, free_mask=free_mask, sources=None,
+                             device=graph.device)
     if cfg.strategy in _SHARDED:
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not ported to repro_torch yet "

@@ -41,6 +41,7 @@ the same transfer as the round condition.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -104,7 +105,8 @@ class DeltaConfig:
 
 
 class SSSPResult(NamedTuple):
-    """Solve result."""
+    """Solve result; ``DeltaSteppingSolver.solve_many`` returns the same
+    tuple with a leading lane axis on every field."""
 
     dist: torch.Tensor       # int32[n], INF32 = unreachable
     pred: torch.Tensor       # int32[n], -1 = source/unreachable
@@ -657,26 +659,81 @@ def _finish_pred_many(tent, coo: COOGraph, sources, cfg: DeltaConfig):
 
 
 # ---------------------------------------------------------------------------
-# the reference's deprecated entry points
+# public API — deprecated shims over the Query/Plan façade (repro_torch.api)
 # ---------------------------------------------------------------------------
 
-def _deprecated_shim(name: str):
-    raise NotImplementedError(
-        f"{name} is a deprecated shim in the reference and is not ported "
-        "yet (ROADMAP Queue 1 item 2, with the tuner); use "
-        "repro_torch.api.Engine(graph, config).plan().solve(query)")
-
-
 class DeltaSteppingSolver:
-    """The reference's deprecated solver shim: not ported; raises."""
+    """**Deprecated** thin shim over the Query/Plan façade — prefer
+    ``repro_torch.api.Engine(graph, config).plan()`` (DESIGN.md §10).
 
-    def __init__(self, *args, **kwargs):
-        _deprecated_shim("DeltaSteppingSolver")
+    The reference's class with its signature and ``device`` added:
+    ``solve`` and ``solve_many`` delegate to
+    ``Plan.solve(SingleSource(...))`` / ``Plan.solve(MultiSource(...))``.
+    ``free_mask`` routes ``strategy='pallas'`` to the grid stencil.
+    ``config="auto"`` consults the tuner (DESIGN.md §7), ``tune_cache``
+    naming the cache file; a concrete config is used as given, never
+    overwritten by a cached record. The plan is built with
+    ``sources=None``: the solver cannot know its future sources, so a
+    tuning-chosen frontier cap is dropped rather than trusted."""
+
+    def __init__(self, graph: COOGraph, config: DeltaConfig = DeltaConfig(),
+                 *, free_mask=None, tune_cache: Optional[str] = None,
+                 device=None):
+        warnings.warn(
+            "DeltaSteppingSolver is deprecated: use repro_torch.api.Engine("
+            "graph, config).plan() and the query algebra (DESIGN.md §10)",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.api import Engine, Tuning  # api builds on core
+        if isinstance(config, str):
+            if config != "auto":
+                raise ValueError(f"config must be 'auto', got {config!r}")
+            engine = Engine(graph, None, free_mask=free_mask,
+                            tuning=Tuning(cache=tune_cache), device=device)
+        else:
+            engine = Engine(graph, config, free_mask=free_mask, device=device)
+        self._plan = engine.plan(sources=None)
+        self.config = self._plan.config
+        self.graph = graph
+        self.backend = self._plan.backend
+
+    @property
+    def plan(self):
+        """The underlying ``repro_torch.api.Plan`` (the migration path)."""
+        return self._plan
+
+    def solve(self, source: int) -> SSSPResult:
+        from repro_torch.api import SingleSource
+        r = self._plan.solve(SingleSource(source))
+        t = r.telemetry
+        return SSSPResult(r.dist, r.pred, t.buckets, t.inner_iters,
+                          t.overflow)
+
+    def solve_many(self, sources) -> SSSPResult:
+        """Batched multi-source solve: every field carries a leading
+        lane axis (the counters as CPU tensors), lane ``b`` bitwise
+        ``solve(sources[b])``."""
+        from repro_torch.api import MultiSource
+        r = self._plan.solve(MultiSource(sources))
+        t = r.telemetry
+        return SSSPResult(r.dist, r.pred, t.buckets, t.inner_iters,
+                          t.overflow)
 
 
-def delta_stepping(*args, **kwargs):
-    """The reference's deprecated one-shot solve: not ported; raises."""
-    _deprecated_shim("delta_stepping")
+def delta_stepping(graph: COOGraph, source: int,
+                   config: DeltaConfig = DeltaConfig(), *,
+                   device=None) -> SSSPResult:
+    """**Deprecated** one-shot convenience wrapper (prefer
+    ``repro_torch.api.Engine(graph, config).plan().solve(
+    SingleSource(s))``). ``config="auto"`` picks Δ from graph statistics
+    (DESIGN.md §7)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        solver = DeltaSteppingSolver(graph, config, device=device)
+    warnings.warn(
+        "delta_stepping is deprecated: use repro_torch.api.Engine(graph, "
+        "config).plan().solve(SingleSource(source)) (DESIGN.md §10)",
+        DeprecationWarning, stacklevel=2)
+    return solver.solve(source)
 
 
 __all__ = [

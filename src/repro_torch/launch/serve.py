@@ -1,0 +1,125 @@
+"""Serving launcher of the PyTorch port: batched SSSP queries over the
+async serving tier (``repro_torch.serve.Server``, DESIGN.md §13).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --sssp --nodes 20000 \\
+      --requests 32 --batch 8
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --sssp --device cpu \\
+      --nodes 3000 --requests 12 --batch 4
+
+Flag names follow ``repro.launch.serve``. The server runs on CUDA unless
+``--device cpu`` is given (then the kernels' plain twins run). The
+graph is ``watts_strogatz(--nodes, --degree, 1e-2, seed=0)``; one
+``SingleSource(0)`` is served first (kernel build and warm-up), then
+``--requests`` requests, alternating ``SingleSource`` and
+``PointToPoint`` from seeded sources, go through the background batch
+loop in lane batches of ``--batch``. ``--tune`` tunes the tenant's
+operating point by measured search at graph load; ``--tune-cache PATH``
+persists and reuses the record (alone: a cache hit or the
+zero-measurement estimator). LM decode (``--arch``) is not ported
+(ROADMAP Queue 1 item 6).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _serve_sssp(args):
+    import numpy as np
+    import torch
+
+    from repro_torch.api import PointToPoint, SingleSource, Tuning
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import watts_strogatz
+    from repro_torch.serve import Server
+
+    g = watts_strogatz(args.nodes, args.degree, 1e-2, seed=0)
+    t0 = time.perf_counter()
+    # the concrete config is the tuning *base*: --strategy and --policy
+    # survive tuning as non-searched fields
+    auto = args.tune or args.tune_cache is not None
+    config = DeltaConfig(delta=args.delta, strategy=args.strategy,
+                         policy=args.policy, rho=args.rho)
+    if not auto and args.policy != "delta":
+        print(f"[serve] frontier policy: {args.policy}")
+    tuning = Tuning(measure=args.tune, cache=args.tune_cache) if auto \
+        else None
+    srv = Server(g, config=config, tuning=tuning, lane_width=args.batch,
+                 device=args.device)
+    dev = srv.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if auto:
+        plan = srv.plan()
+        cfg, rec = plan.config, plan.record
+        print(f"[serve] tuned at graph load on {name}: Δ={cfg.delta} "
+              f"strategy={cfg.strategy} policy={cfg.policy} "
+              f"cap={cfg.frontier_cap} record={rec.source} "
+              f"({time.perf_counter() - t0:.1f}s)")
+    srv.submit(SingleSource(0))
+    srv.drain()                                 # kernel build + warm-up
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    tickets = []
+    with srv:                                   # continuous batch loop
+        for i in range(args.requests):
+            # mix of full distance-vector and point-to-point queries
+            src = int(rng.integers(g.n_nodes))
+            q = (PointToPoint(src, int(rng.integers(g.n_nodes)))
+                 if i % 2 else SingleSource(src))
+            tickets.append(srv.submit(q))
+        results = [t.result() for t in tickets]
+    dt = time.perf_counter() - t0
+    n_paths = sum(1 for r in results if getattr(r, "path", None) is not None)
+    stats = srv.stats()
+    print(f"[serve] answered {len(results)} SSSP queries ({n_paths} with "
+          f"paths) in {dt:.2f}s on {name} "
+          f"({len(results) / dt:.1f} qps, lanes={args.batch}, "
+          f"|V|={g.n_nodes})")
+    print(f"[serve] p50={stats['latency_p50_ms']:.1f} ms "
+          f"p99={stats['latency_p99_ms']:.1f} ms "
+          f"occupancy={stats['mean_occupancy']:.2f} "
+          f"batches={stats['batches']} shed={stats['shed'] or 0}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="LM decode serving: not ported (ROADMAP Queue 1 "
+                         "item 6)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--sssp", action="store_true",
+                    help="serve batched SSSP queries")
+    ap.add_argument("--nodes", type=int, default=20_000)
+    ap.add_argument("--degree", type=int, default=12)
+    ap.add_argument("--delta", type=int, default=10)
+    ap.add_argument("--strategy", default="edge",
+                    choices=["edge", "ell", "fused"],
+                    help="relaxation strategy")
+    ap.add_argument("--policy", default="delta",
+                    choices=["delta", "rho", "radius"],
+                    help="frontier-selection policy (DESIGN.md §15)")
+    ap.add_argument("--rho", type=int, default=None,
+                    help="--policy rho: batch size rho")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="microbatch size (MultiSource lanes)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain twins)")
+    ap.add_argument("--tune", action="store_true",
+                    help="measured auto-tune at graph load")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="persistent tuning cache")
+    args = ap.parse_args(argv)
+
+    if args.arch is not None:
+        raise NotImplementedError(
+            "LM decode serving (--arch) is not ported to repro_torch yet "
+            "(ROADMAP Queue 1 item 6)")
+    if not args.sssp:
+        ap.error("--sssp is required (LM serving is not ported)")
+    _serve_sssp(args)
+
+
+if __name__ == "__main__":
+    main()

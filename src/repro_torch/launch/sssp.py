@@ -12,6 +12,9 @@
   PYTHONPATH=src python -m repro_torch.launch.sssp --nodes 100000 \\
       --target 54321 --p2p-mode alt_bidirectional --landmarks 4 --verify
 
+  PYTHONPATH=src python -m repro_torch.launch.sssp --nodes 100000 \\
+      --tune --tune-cache tuning.json --verify
+
 Flag names follow ``repro.launch.sssp``. The solve runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 first solve builds the CUDA kernels and warms up; the second is timed.
@@ -28,6 +31,14 @@ lane). ``--policy rho|radius`` (with ``--rho`` / ``--radius-k``) runs
 the frontier-policy loop instead of the bucket loop. ``--verify``
 checks the distances (lane 0 of a batch) against the heap-Dijkstra
 oracle and exits non-zero on a mismatch.
+
+``--tune`` replaces ``--delta``/``--strategy``/``--policy`` by the
+measured (Δ, strategy, frontier cap, policy) search on the device
+(``repro_torch.tune``, DESIGN.md §7); ``--tune-cache PATH`` persists and
+reuses tuned records across runs: with ``--tune-cache`` alone, a cache
+hit (or the zero-measurement estimator) picks the config without a
+search. Either prints the tuned point and the record's source
+(``measured``, ``cache`` or ``heuristic``).
 """
 from __future__ import annotations
 
@@ -74,6 +85,12 @@ def main(argv=None):
     ap.add_argument("--landmarks", type=int, default=None, metavar="K",
                     help="landmark count for --p2p-mode other than "
                          "early_exit (default 4)")
+    ap.add_argument("--tune", action="store_true",
+                    help="pick (Δ, strategy, cap, policy) by measured "
+                         "search instead of --delta/--strategy/--policy")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="persistent JSON tuning cache; implies a tuned "
+                         "config (cache hit or heuristic estimator)")
     ap.add_argument("--verify", action="store_true")
     args = ap.parse_args(argv)
 
@@ -81,7 +98,7 @@ def main(argv=None):
     import torch
 
     from repro_torch.api import (Engine, MultiSource, PointToPoint,
-                                 SingleSource)
+                                 SingleSource, Tuning)
     from repro_torch.core import DeltaConfig, dijkstra
     from repro_torch.graphs import grid_map, rmat, watts_strogatz
 
@@ -103,12 +120,25 @@ def main(argv=None):
                       pred_mode=args.pred_mode, policy=args.policy,
                       rho=args.rho, radius_k=args.radius_k)
     sources = list(range(args.sources))
-    engine = Engine(g, cfg, free_mask=free, device=args.device)
+    tuned = args.tune or args.tune_cache is not None
+    tuning = (Tuning(measure=args.tune, cache=args.tune_cache) if tuned
+              else None)
+    t0 = time.perf_counter()
+    engine = Engine(g, cfg, free_mask=free, tuning=tuning,
+                    device=args.device)
+    # sources= the ones solved below: a tuning-chosen frontier cap is
+    # validated against exactly these
     plan = engine.plan(sources=sources)
+    cfg = plan.config
     dev = engine.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    if cfg.policy != "delta":
+    if tuned:
+        print(f"[sssp] tuned config: Δ={cfg.delta} strategy={cfg.strategy} "
+              f"policy={cfg.policy} cap={cfg.frontier_cap} "
+              f"record={plan.record.source} "
+              f"({time.perf_counter() - t0:.1f}s to tune on {name})")
+    elif cfg.policy != "delta":
         print(f"[sssp] frontier policy: {cfg.policy}")
     if args.target is not None:
         mode = args.p2p_mode

@@ -1,0 +1,31 @@
+"""Serving layer of the PyTorch port: the async SSSP serving tier
+(``Server`` — continuous batching, multi-graph tenancy, admission
+control; DESIGN.md §13).
+
+    from repro_torch.serve import Server
+    from repro_torch.api import SingleSource, PointToPoint
+
+    with Server({"road": g1, "social": g2}, tuning="auto") as srv:
+        t1 = srv.submit(SingleSource(0), graph="road")
+        t2 = srv.submit(PointToPoint(3, 99), graph="social", deadline=0.5)
+        print(t1.result().dist, t2.result().distance)
+    print(srv.stats())   # p50/p99 latency, occupancy, shed counts
+
+The reference's LM-decode batcher and its deprecated ``SSSPServer``
+(``repro.serve.decode``) are ROADMAP Queue 1 item 6.
+"""
+from repro_torch.serve.server import (
+    RequestRejected,
+    RequestTrace,
+    Server,
+    Ticket,
+    UpdateApplied,
+)
+
+__all__ = [
+    "RequestRejected",
+    "RequestTrace",
+    "Server",
+    "Ticket",
+    "UpdateApplied",
+]

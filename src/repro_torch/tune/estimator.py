@@ -8,8 +8,8 @@ hand-picked Δ = 10 for both small-world and R-MAT instances.
 
 Everything here is host-side numpy over host copies of the COO
 tensors, the reference's arithmetic line for line. ``GraphStats`` is
-also the key material of the landmark store (``fingerprint``). The
-tuner's search and cache are not ported yet (ROADMAP Queue 1 item 2).
+also the key material of the tuning cache and the landmark store
+(``fingerprint``).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ _ECC_CAP = 1024
 @dataclasses.dataclass(frozen=True)
 class GraphStats:
     """Host-side summary of a ``COOGraph`` — the estimator's input and
-    the store-key material."""
+    the cache- and store-key material."""
 
     n_nodes: int
     n_edges: int

@@ -5,10 +5,10 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (tuning and the deprecated solver shims, the sharded
-  strategies; the batched queries, the frontier policies, dynamic
-  updates and the landmark modes are ported); the launcher runs end to
-  end on the CPU with --verify.
+  ROADMAP item (the sharded strategies, LM serving; the batched
+  queries, the frontier policies, dynamic updates, the landmark modes,
+  tuning, the deprecated solver shims and the SSSP serving tier are
+  ported); the launcher runs end to end on the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -55,6 +55,10 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/landmarks/tables.py",
                  "src/repro_torch/landmarks/store.py",
                  "src/repro_torch/tune/estimator.py",
+                 "src/repro_torch/tune/search.py",
+                 "src/repro_torch/tune/cache.py",
+                 "src/repro_torch/serve/server.py",
+                 "src/repro_torch/launch/serve.py",
                  "src/repro_torch/api/engine.py", "chip_smoke.py"):
         assert must in names
 
@@ -81,16 +85,20 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
 def test_unported_parts_raise_with_roadmap_item():
     g = watts_strogatz(20, 4, 0.1, seed=0)
     cfg = DeltaConfig(delta=5)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Engine(g, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        Engine(g, cfg, tuning="auto", device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         Engine(g, DeltaConfig(strategy="sharded_edge"), device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="item 2"):
-        DeltaSteppingSolver(g, cfg)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        delta_stepping(g, 0, cfg)
+    from repro_torch.launch.serve import main as serve_main
+    with pytest.raises(NotImplementedError, match="item 6"):
+        serve_main(["--arch", "gemma2-9b"])
+    # ported: tuning and the deprecated shims
+    assert Engine(g, device="cpu").plan().record.source == "heuristic"
+    assert Engine(g, cfg, tuning="auto", device="cpu").plan().config.delta \
+        == Engine(g, device="cpu").plan().config.delta
+    with pytest.warns(DeprecationWarning):
+        ref = DeltaSteppingSolver(g, cfg, device="cpu").solve(0)
+    with pytest.warns(DeprecationWarning):
+        assert torch.equal(delta_stepping(g, 0, cfg, device="cpu").dist,
+                           ref.dist)
     # ported: the landmark modes answer as early exit does
     plan = Engine(g, cfg, device="cpu").plan()
     assert plan.solve(PointToPoint(0, 3, mode="alt")).distance == \
