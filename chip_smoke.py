@@ -145,19 +145,21 @@
    backend; the ``fused`` twin by ``fused``'s; a twin overflow's
    full-width re-run adds its own). The strategies ``DYN_TIMED``
    (``edge``, ``pallas``) take two warm-up batches before the first
-   counted one and, after each, are timed: three more batches (update
-   + warm resolve, split into update, host repair planning, warm
-   backend, device loop and the rest, each part checked to be timed,
-   with host syncs) and three ``resolve(warm=False)``, the first held
-   equal to the warm answer. The others take the counted batches only
-   (so after the first k their weights are not ``edge``'s, and each is
-   held to its own ``resolve(warm=False)``). ``rho`` and ``radius`` (k = 4) on ``edge``
-   and ``pallas``: one counted warm batch equal to the cold solve of
-   the updated graph. ``square_lattice(1000, weighted=True)`` under
-   ``edge``, ``pallas`` and ``fused``: the tree edge into the vertex
-   farthest from the source raised by 7 and restored, each warm answer
-   equal to the cold one with far fewer buckets; three more flips
-   timed. One profiled warm ``pallas`` batch. The counted runs join
+   counted one and, after it (the first k only), are timed: three more
+   batches (update + warm resolve, split into update, host repair
+   planning, warm backend, device loop and the rest, each part checked
+   to be timed, with host syncs) and three ``resolve(warm=False)``, the
+   first held equal to the warm answer. At the second k every strategy
+   takes the counted batch only. The others take the counted batches
+   only (so after the first k their weights are not ``edge``'s, and
+   each is held to its own ``resolve(warm=False)``). ``rho`` and
+   ``radius`` (k = 4) on ``edge``: one counted warm batch equal to the
+   cold solve of the updated graph. ``square_lattice(500,
+   weighted=True)`` under ``edge``, ``pallas`` and ``fused``: the tree
+   edge into the vertex farthest from the source raised by 7 and
+   restored, each warm answer equal to the cold one with far fewer
+   buckets; three more flips timed. One profiled warm ``pallas`` batch.
+   The counted runs join
    ``by_path`` as ``smallworld_warm`` and ``lattice_warm``.
 
 10. Landmark point-to-point queries (run after phase 7 and before phase
@@ -225,6 +227,33 @@
    re-solves keep each kernel's largest input. ``stats()`` is printed:
    p50/p99 latency, occupancy, batches, shed counts, evictions.
 
+13. The multi-GPU path (run after phase 12), on the 1 M-vertex
+   small-world graph at Δ = 10. (a) A one-rank NCCL group in this
+   process (a ``FileStore`` in a temporary directory): ``sharded_edge``,
+   ``sharded_ell``, ``sharded_fused`` (argmin) and ``sharded_fused``
+   (packed), each bitwise equal to phase 3's single-device answer of
+   its counterpart (dist, pred, buckets, inner_iters, overflow), with
+   the counters set to 0 just before the first solve and read just
+   after (``frontier_relax`` ``buckets + inner_iters`` times on
+   ``sharded_fused``, nothing else), then the median of 3 solves. (b)
+   Two gloo ranks sharing the card, each a process of its own with a
+   time limit (``chip_smoke.py --sharded-rank R 2 DIR``), on the graph
+   written to ``DIR``: ``sharded_edge`` and ``sharded_fused`` at P = 2,
+   equal to phase 3 on both ranks, rank ``r`` launching
+   ``frontier_relax`` ``buckets + inner_iters`` times at ``base = r *
+   500 000``; the distributed engine on the ``(1, 2)`` and ``(2, 1)``
+   meshes under both combines and ``local_steps`` 1 and 2, ``dist`` of
+   sources 0 and 131 071 equal to scipy's. (c) ``frontier_relax``
+   against its twin (``torch.equal`` on all six outputs) on shard 1's
+   slice of ``partition_ell(g, 2, 10)`` (S = 500 000, ``base`` = S,
+   ``sent`` = n) at three of phase 2's recorded mid-solve states, the
+   largest kept as the ``sharded`` path of the kernels line (timed as
+   in phase 7); the one-rank solves join it as ``sharded_nccl1`` on
+   phase 2's inputs (a one-rank shard is the whole graph at base 0).
+   (d) The three example twins (``examples/torch_*.py``) on the card,
+   as processes of their own; the quickstart under ``-W
+   error::DeprecationWarning``.
+
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without
@@ -285,7 +314,7 @@ SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 # protocol), the strategies timed, and the lattice
 DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
 DYN_TIMED = ("edge", "pallas")
-LATTICE_SIDE, LATTICE_STRATEGIES = 1000, ("edge", "pallas", "fused")
+LATTICE_SIDE, LATTICE_STRATEGIES = 500, ("edge", "pallas", "fused")
 # phase 10: landmarks per plan, the update batch size (phase 9's
 # protocol), the point-to-point modes
 LANDMARK_K, LM_DYN_K = 4, 20_000
@@ -295,6 +324,9 @@ LM_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
 # and the edges per update (benchmarks/bench_serving.py's)
 TUNE_STRATEGIES, TUNE_POLICIES = ("edge", "fused"), ("delta",)
 SERVE_LANES, SERVE_RESIDENT, SERVE_REQUESTS, SERVE_UPDATE_EDGES = 8, 2, 48, 16
+# phase 13: gloo ranks on the one card, the distributed engine's sources
+# (one per data row on the (2, 1) mesh), each subprocess's time limit
+SHARD_RANKS, SHARD_SOURCES, SHARD_LIMIT_S = 2, (0, 131_071), 400
 
 
 def check(cond, what: str) -> None:
@@ -1348,15 +1380,16 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
         seq = cycles[k]
         first = k == DYN_KS[0]
         # the first k: two warm-up batches, the counted one, then three
-        # timed; the second k: the counted one, then three timed
+        # timed (DYN_TIMED only); the second k: the counted one
         warmups, counted_b = (seq[:2], seq[2]) if first else ([], seq[0])
-        timed_b = [seq[3], seq[0], seq[1]] if first else seq[1:4]
+        timed_b = [seq[3], seq[0], seq[1]]
         oracle = None
         refs = []       # (weights, warm answer, plan) of this k, per weights
         for key in keys:
             st, pm = key
             plan = plans[key]
-            if st in DYN_TIMED:      # timing warm-ups
+            timed = first and st in DYN_TIMED
+            if timed:                # timing warm-ups
                 for ids, w in warmups:
                     plan.solve(UpdateBatch(ids, w))
             res, got, split = counted(plan, UpdateBatch(*counted_b),
@@ -1393,7 +1426,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 check(same_answer(res, fresh),
                       f"{st}/{pm} k={k}: warm != a fresh Engine's cold solve")
                 fresh_note = f"== a fresh Engine ({walls[0]:.0f} ms)"
-            elif st in DYN_TIMED:
+            elif timed:
                 fresh_note = "(held to resolve(warm=False) below)"
             else:
                 cold, walls = walls_ms(
@@ -1410,7 +1443,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 f"{split.ms['update']:.1f}, planning "
                 f"{split.ms['planning']:.1f}, warm backend "
                 f"{split.ms['twin']:.1f}, loop {split.ms['loop']:.1f} ms")
-            if st in DYN_TIMED:
+            if timed:
                 # timed: three cold re-solves (the first held to the warm
                 # answer), then three batches after the counted one
                 cold, walls = walls_ms(
@@ -1426,7 +1459,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
 
     # -- 9c. frontier policies, warm --------------------------------------
     for policy, extra in (("rho", {}), ("radius", dict(radius_k=RADIUS_K))):
-        for st in ("edge", "pallas"):
+        for st in ("edge",):
             cfg = DeltaConfig(delta=DELTA, strategy=st, pred_mode="argmin",
                               policy=policy, **extra)
             plan = Engine(g, cfg, device=cuda).plan()
@@ -2128,6 +2161,276 @@ def serving_path(torch, np, cuda, g, ref_dist, keyed, counters, cache_path):
     return by_path, records
 
 
+# -- phase 13: the multi-GPU path ------------------------------------------
+
+def sharded_rank(rank: int, world: int, work: str) -> int:
+    """One rank of phase 13's gloo group on the script's card (run as
+    ``chip_smoke.py --sharded-rank RANK WORLD DIR``): loads the graph
+    the parent wrote, solves ``SingleSource(0)`` on ``sharded_edge`` and
+    ``sharded_fused`` over the 2 ranks, then runs the distributed engine
+    on the ``(1, 2)`` and ``(2, 1)`` meshes under both combines and
+    ``local_steps`` 1 and 2, and saves what it got (answers, counters,
+    launches, the ``base`` of every ``frontier_relax`` call, wall
+    times) to ``DIR/rank<RANK>.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core.backends as backends
+    from repro_torch.api import Engine, SingleSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.core.distributed import (DistDeltaConfig,
+                                              build_distributed_solver)
+    from repro_torch.graphs import coo_from_numpy, partition_edges
+    from repro_torch.kernels.frontier_relax import frontier_relax_cuda
+    from torch.distributed.device_mesh import init_device_mesh
+
+    work = Path(work)
+    cuda = torch.device("cuda", 0)
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    data = np.load(work / "graph.npz")
+    g = coo_from_numpy(data["src"], data["dst"], data["w"], int(data["n"]),
+                       device=cuda)
+    out = {}
+    bases = []
+    real_fr = backends.frontier_relax
+
+    def seen_fr(*args, **kw):
+        bases.append(kw["base"])
+        return real_fr(*args, **kw)
+
+    backends.frontier_relax = seen_fr
+    for st in ("sharded_edge", "sharded_fused"):
+        t0 = time.perf_counter()
+        plan = Engine(g, DeltaConfig(delta=DELTA, strategy=st,
+                                     pred_mode="argmin"), device=cuda).plan()
+        build = time.perf_counter() - t0
+        frontier_relax_cuda.launches = 0
+        bases.clear()
+        t0 = time.perf_counter()
+        r = plan.solve(SingleSource(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t = r.telemetry
+        out[f"{st}/dist"] = r.dist.cpu().numpy()
+        out[f"{st}/pred"] = r.pred.cpu().numpy()
+        out[f"{st}/stats"] = np.array(
+            [t.buckets, t.inner_iters, int(t.overflow),
+             frontier_relax_cuda.launches, plan.host_syncs])
+        out[f"{st}/bases"] = np.array(sorted(set(bases)), np.int64)
+        out[f"{st}/ms"] = np.array([build * 1e3, wall * 1e3])
+    backends.frontier_relax = real_fr
+    for shape in ((1, 2), (2, 1)):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        part = partition_edges(g, shape[1], device="cpu")
+        for combine in ("allreduce", "reduce_scatter"):
+            for ls in (1, 2):
+                solve = build_distributed_solver(
+                    part, mesh, DistDeltaConfig(delta=DELTA, combine=combine,
+                                                local_steps=ls), device=cuda)
+                t0 = time.perf_counter()
+                d, outer, inner = solve(list(SHARD_SOURCES))
+                torch.cuda.synchronize()
+                key = f"dist/{shape[0]}x{shape[1]}/{combine}/{ls}"
+                out[f"{key}/dist"] = d.cpu().numpy()
+                out[f"{key}/stats"] = np.array(
+                    [outer, inner, (time.perf_counter() - t0) * 1e3])
+    dist.destroy_process_group()
+    np.savez(work / f"rank{rank}.npz", **out)
+    return 0
+
+
+def sharded_path(torch, np, cuda, g, results, ref_dist, fr_records,
+                 counters):
+    """Phase 13: the multi-GPU path (see the module note). Returns the
+    launches of the one-rank NCCL solves (``sharded_nccl1``) and of the
+    two gloo ranks (``sharded``), and the ``sharded`` path's recorded
+    ``frontier_relax`` input: shard 1's slice at the largest of the
+    recorded mid-solve states."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.api import Engine, SingleSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import partition_ell
+    from repro_torch.kernels.frontier_relax import (frontier_relax_cuda,
+                                                    frontier_relax_ref)
+
+    t_phase = time.perf_counter()
+    n = g.n_nodes
+    work = tempfile.TemporaryDirectory()
+    wdir = Path(work.name)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def same_as(res, key, what):
+        """``res`` bitwise phase 3's solve of ``key``: dist, pred,
+        buckets, inner_iters, overflow."""
+        base = results[key][0]
+        check(torch.equal(res.dist, base.dist)
+              and torch.equal(res.pred, base.pred)
+              and (res.telemetry.buckets, res.telemetry.inner_iters,
+                   res.telemetry.overflow)
+              == (base.telemetry.buckets, base.telemetry.inner_iters,
+                  base.telemetry.overflow),
+              f"{what}: differs from phase 3's {key[0]}/{key[1]} solve")
+
+    # (b) is started first: two gloo ranks on this card, in processes of
+    # their own, on the graph written here
+    np.savez(wdir / "graph.npz", src=g.src.cpu().numpy(),
+             dst=g.dst.cpu().numpy(), w=g.w.cpu().numpy(), n=n)
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         str(r), str(SHARD_RANKS), str(wdir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
+
+    # (a) a one-rank NCCL group in this process
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(wdir / "nccl_store"), 1), rank=0, world_size=1, device_id=cuda)
+    launches_1 = dict.fromkeys(counters, 0)
+    try:
+        for st, pm, ref_key in (("sharded_edge", "argmin", ("edge", "argmin")),
+                                ("sharded_ell", "argmin", ("ell", "argmin")),
+                                ("sharded_fused", "argmin",
+                                 ("fused", "argmin")),
+                                ("sharded_fused", "packed",
+                                 ("fused", "packed"))):
+            t0 = time.perf_counter()
+            plan = Engine(g, DeltaConfig(delta=DELTA, strategy=st,
+                                         pred_mode=pm), device=cuda).plan()
+            build = time.perf_counter() - t0
+            zero()
+            res, first = walls_ms(torch, lambda: plan.solve(SingleSource(0)),
+                                  1)
+            got = read()
+            same_as(res, ref_key, f"{st}/{pm} on a one-rank NCCL group")
+            t = res.telemetry
+            want = dict.fromkeys(counters, 0)
+            if st == "sharded_fused":
+                want["frontier_relax"] = t.buckets + t.inner_iters
+            check(got == want, f"{st}/{pm}: launches {got}, not {want}")
+            for k, v in got.items():
+                launches_1[k] += v
+            _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 3)
+            base_ms = results[ref_key][2] * 1e3
+            log(f"[sharded] nccl x1 {st}/{pm}: == phase 3's "
+                f"{ref_key[0]}/{ref_key[1]} (dist, pred, buckets="
+                f"{t.buckets}, inner_iters={t.inner_iters}, overflow); "
+                f"launches {json.dumps(got)}; plan {build:.1f} s, first "
+                f"solve {first[0]:.1f} ms (phase 3's {base_ms:.1f}); "
+                f"{fmt(walls)}; host_syncs={plan.host_syncs}")
+            del plan
+    finally:
+        dist.destroy_process_group()
+    check(launches_1["frontier_relax"] > 0,
+          "sharded_fused did not launch frontier_relax")
+
+    # (b) while the ranks run: scipy for the engine's second source
+    t0 = time.perf_counter()
+    refs = np.stack([ref_dist, oracle_dist(g, SHARD_SOURCES[1])[0]])
+    log(f"[sharded] scipy for source {SHARD_SOURCES[1]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r, p in enumerate(ranks):
+        try:
+            text, _ = p.communicate(timeout=SHARD_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            for q in ranks:
+                q.kill()
+            raise RuntimeError(f"check failed: gloo rank {r} ran past "
+                               f"{SHARD_LIMIT_S} s")
+        check(p.returncode == 0, f"gloo rank {r} failed:\n{text[-3000:]}")
+    got = [dict(np.load(wdir / f"rank{r}.npz")) for r in range(SHARD_RANKS)]
+    launches_2 = dict.fromkeys(counters, 0)
+    for r, out in enumerate(got):
+        for st, ref_key in (("sharded_edge", ("edge", "argmin")),
+                            ("sharded_fused", ("fused", "argmin"))):
+            base = results[ref_key][0]
+            bt = base.telemetry
+            buckets, inner, over, fr, syncs = out[f"{st}/stats"].tolist()
+            check(np.array_equal(out[f"{st}/dist"], base.dist.cpu().numpy())
+                  and np.array_equal(out[f"{st}/pred"],
+                                     base.pred.cpu().numpy())
+                  and (buckets, inner, bool(over))
+                  == (bt.buckets, bt.inner_iters, bt.overflow),
+                  f"gloo rank {r} {st}: differs from phase 3's "
+                  f"{ref_key[0]}/{ref_key[1]} solve")
+            bases = out[f"{st}/bases"].tolist()
+            if st == "sharded_fused":
+                check(fr == buckets + inner and bases == [r * (n // 2)],
+                      f"gloo rank {r}: frontier_relax launches {fr} at "
+                      f"bases {bases}, not {buckets + inner} at "
+                      f"{r * (n // 2)}")
+                launches_2["frontier_relax"] += fr
+            else:
+                check(fr == 0 and not bases, f"gloo rank {r}: {st} "
+                      "launched frontier_relax")
+            build_ms, wall_ms = out[f"{st}/ms"].tolist()
+            log(f"[sharded] gloo x{SHARD_RANKS} rank {r} {st}: == phase 3's "
+                f"{ref_key[0]}/{ref_key[1]}; frontier_relax launches {fr} "
+                f"at base {bases}; plan {build_ms / 1e3:.1f} s, first solve "
+                f"{wall_ms:.1f} ms; host_syncs={syncs}")
+        for key in sorted(k[:-5] for k in out if k.startswith("dist/")
+                          and k.endswith("/dist")):
+            check(np.array_equal(out[f"{key}/dist"].astype(np.int64), refs),
+                  f"gloo rank {r} {key}: dist differs from scipy's")
+            outer, inner, ms = out[f"{key}/stats"].tolist()
+            log(f"[sharded] gloo x{SHARD_RANKS} rank {r} engine {key}: "
+                f"dist == scipy for sources {list(SHARD_SOURCES)}; "
+                f"outer={int(outer)} inner={int(inner)}, {ms:.1f} ms")
+    work.cleanup()
+
+    # (c) frontier_relax against its twin on shard 1's slice
+    s = -(-n // SHARD_RANKS)
+    part = partition_ell(g, SHARD_RANKS, DELTA, device="cpu")
+    nbr1 = part.light_nbr[1].to(cuda)
+    w1 = part.light_w[1].to(cuda)
+    kw = dict(delta=DELTA, cap=s, base=s, sent=n)
+    big = max(range(len(fr_records)), key=lambda k: fr_records[k][2])
+    chosen = sorted({0, len(fr_records) // 2, big})
+    shard = {}
+    for k in chosen:
+        (d, e, i, _, _), _, _ = fr_records[k]
+        args = (d[s:2 * s], e[s:2 * s], i, nbr1, w1)
+        out = frontier_relax_cuda(*args, **kw)
+        same(torch, out, frontier_relax_ref(*args, **kw))
+        torch.cuda.synchronize()
+        shard[k] = (args, kw, int(out[3]))
+    log(f"[sharded] frontier_relax on shard 1's slice (S={s}, base={s}, "
+        f"sent={n}) equal to its twin at {len(chosen)} mid-solve states; "
+        f"populations {[shard[k][2] for k in chosen]}")
+
+    # (d) the example twins on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    twins = [(script, subprocess.Popen(
+        [sys.executable, *flags, str(ROOT / "examples" / script)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for script, flags in (("torch_quickstart.py",
+                               ["-W", "error::DeprecationWarning"]),
+                              ("torch_multi_source_sssp.py", []),
+                              ("torch_sssp_gamemap.py", []))]
+    for script, p in twins:
+        text, _ = p.communicate(timeout=SHARD_LIMIT_S)
+        check(p.returncode == 0, f"{script} failed on the card:\n"
+              f"{text[-3000:]}")
+        log(f"[sharded] {script} on the card: "
+            + " | ".join(text.strip().splitlines()[:3]))
+    log(f"[sharded] launches: nccl x1 {json.dumps(launches_1)}, gloo x"
+        f"{SHARD_RANKS} {json.dumps(launches_2)}")
+    log(f"[sharded] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_1, launches_2, shard[big]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2514,6 +2817,17 @@ def main() -> int:
     cache_dir.cleanup()
     by_path.update(serve_launches)
     records.update(serve_records)
+
+    # -- 13. the multi-GPU path: sharded strategies, distributed engine ----
+    launches_nccl1, launches_gloo, shard_record = sharded_path(
+        torch, np, cuda, g, results, ref_dist, rec["frontier_relax"],
+        counters)
+    # a one-rank shard is the whole graph at base 0: phase 3's fused
+    # solve's inputs (checked bitwise above)
+    by_path.update(sharded_nccl1=launches_nccl1, sharded=launches_gloo)
+    records.update(
+        sharded_nccl1={"frontier_relax": main_case["frontier_relax"]},
+        sharded={"frontier_relax": shard_record})
     launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     kernels = []
@@ -2691,4 +3005,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     sys.exit(main())

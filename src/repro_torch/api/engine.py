@@ -68,8 +68,17 @@ engine raises unless the caller asked for ``device="cpu"``; it never
 falls back to the CPU quietly. On CUDA the ``pallas`` and ``fused``
 strategies launch the hand-written kernels; on the CPU their twins run.
 
-Not ported yet: the sharded strategies (``NotImplementedError`` naming
-ROADMAP Queue 1 item 5).
+Sharded strategies (``sharded_edge|ell|fused``, DESIGN.md §9): one
+process per GPU, every rank builds the same plan and runs the same
+queries; each relaxes its own shard and the collectives of
+``torch.distributed`` merge the shards' words, so every host decision
+(loop flags, the next bucket, stop predicates, the overflow fallback,
+telemetry) reads replicated state. Plans, every query kind, the
+overflow fallback (the twin widens the per-shard capacity) and updates
+(``_rebuild_backend``'s default build; warm solves keep the plan's own
+backend) go through ``Plan`` as on one device; ``explain()["n_shards"]``
+is the config's. The shard count is the initialised process group's
+size (1 without a group: one shard, no collective).
 """
 from __future__ import annotations
 
@@ -330,13 +339,13 @@ class Plan:
         """The plan with no frontier cap. Only the ELL-family backends
         can overflow, and their blocks do not depend on the cap, so the
         twin shares them, the graph and the policy, and only widens
-        ``cap`` to ``n`` (the reference rebuilds the whole plan; the
+        ``cap`` to ``n`` (to the shard's vertex count on a sharded
+        backend; the reference rebuilds the whole plan; the
         answers are the same). The resident state and the landmark
         state ride along: both depend on the graph, never on the cap."""
         twin = copy.copy(self)
         twin.config = dataclasses.replace(self.config, frontier_cap=None)
-        twin.backend = dataclasses.replace(self.backend,
-                                           cap=self.graph.n_nodes)
+        twin.backend = self.backend.full_width()
         twin._fallback = False
         twin._bind_drivers()
         return twin
@@ -376,9 +385,8 @@ class Plan:
         if self._demoted is not None:
             # the full-width twin shares the rebuilt blocks (and the
             # radius policy), as at demotion
-            self._demoted._install(
-                graph, dataclasses.replace(self.backend, cap=graph.n_nodes),
-                self._policy)
+            self._demoted._install(graph, self.backend.full_width(),
+                                   self._policy)
         for lm in states:
             lm.note_update(graph)
         return self

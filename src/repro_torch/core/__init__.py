@@ -1,6 +1,7 @@
-"""Core of the PyTorch port: the Δ-stepping engine, its backends, the
-standalone game-map grid solver, the value-word packing and the host
-oracles."""
+"""Core of the PyTorch port: the Δ-stepping engine, its backends (the
+sharded ones over ``torch.distributed``), the distributed engine
+(``core.distributed``), the standalone game-map grid solver, the
+value-word packing and the host oracles."""
 from repro_torch.core.backends import (
     EdgeBackend,
     EllBackend,
@@ -8,8 +9,12 @@ from repro_torch.core.backends import (
     GridPallasBackend,
     PallasEllBackend,
     RelaxBackend,
+    ShardedEdgeBackend,
+    ShardedEllBackend,
+    ShardedFusedBackend,
     edge_sweep,
     make_backend,
+    resolve_n_shards,
     scan_bucket,
 )
 from repro_torch.core.delta_stepping import (
@@ -62,6 +67,10 @@ __all__ = [
     "FusedBackend",
     "GridPallasBackend",
     "PallasEllBackend",
+    "ShardedEdgeBackend",
+    "ShardedEllBackend",
+    "ShardedFusedBackend",
+    "resolve_n_shards",
     "GridDeltaConfig",
     "GridDeltaSolver",
     "GridSSSPResult",

@@ -1,7 +1,7 @@
-"""Relaxation backends of the PyTorch port (single-device part of
+"""Relaxation backends of the PyTorch port (counterpart of
 ``repro.core.backends``).
 
-Every strategy of the reference's main path, over the same primitives:
+Every strategy of the reference, over the same primitives:
 
 * ``edge``   — edge-centric |E| sweep (tensor scatter-min), no
   preprocessing; the light mask is evaluated on the fly.
@@ -17,6 +17,10 @@ Every strategy of the reference's main path, over the same primitives:
 * ``pallas`` with a ``free_mask`` (game maps) — the masked 8-neighbour
   stencil of the hand-written ``kernels/grid_relax`` kernel over the
   occupancy grid, with every bucket scan on ``kernels/bucket_scan``.
+* ``sharded_edge`` / ``sharded_ell`` / ``sharded_fused`` — the same
+  three sweeps over the ranks of a ``torch.distributed`` process group
+  (one process per GPU), each rank on its own shard of
+  ``graphs.partition``, the shards' words merged by collectives.
 
 A backend provides ``sweep(tent, mask, bucket_i, light=, packed=) →
 (tent', overflow)`` (``overflow`` a device bool, or ``None`` for a
@@ -26,7 +30,8 @@ tensors live on one device; on CUDA the kernels run, on the CPU their
 plain twins (the ops dispatchers decide by the tensor's device).
 
 Batched sources: the ``sweep`` and ``scan`` of ``edge`` and ``ell``
-(``supports_vmap``, the reference's split) also take a whole ``[B, n]``
+and of their sharded forms (``supports_vmap``, the reference's split)
+also take a whole ``[B, n]``
 batch, every lane with its own bucket index, compaction and overflow
 flag — the tensor form of the reference's ``vmap``. The kernel
 strategies run a batch lane by lane, as the reference runs them under
@@ -46,6 +51,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import pack as packing
 from repro_torch.core.grid import free_mask_tensor
@@ -57,6 +63,7 @@ from repro_torch.graphs.structures import (
     csr_to_ell,
     light_heavy_split,
 )
+from repro_torch.graphs.partition import partition_edges, partition_ell
 from repro_torch.kernels.bucket_scan import bucket_scan
 from repro_torch.kernels.ell_relax import ell_relax
 from repro_torch.kernels.frontier_relax import compact_ref, frontier_relax
@@ -216,18 +223,28 @@ def ell_relax_words(tent, fidx, rows_n, rows_w, *, n: int, packed: bool,
 def ell_sweep(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
               canonical: bool = False):
     """Expand compacted frontier rows of an ELL adjacency block.
-    ``fidx`` int32[cap] with sentinel value n for padding slots.
+    ``fidx`` int32[cap] with sentinel value n for padding slots, or
+    ``[B, cap]`` over ``[B, n]`` lanes (each lane's own compaction)."""
+    return rows_min(tent, tent, fidx, nbr[fidx], w_ell[fidx], n=n,
+                    packed=packed, canonical=canonical)
 
-    Over ``[B, n]`` lanes (``fidx`` [B, cap], each lane's own
-    compaction) the batch is one flat tent of ``B * n`` words: lane b's
-    ids are offset by ``b * n`` and its sentinel becomes the flat
-    sentinel ``B * n``, so the single-lane ops run on it unchanged."""
-    rows_n = nbr[fidx]                      # (cap, D); row n is all-sentinel
-    rows_w = w_ell[fidx]
+
+def rows_min(target, tent, fidx, rows_n, rows_w, *, n: int, packed: bool,
+             canonical: bool = False):
+    """Scatter-min into ``target`` (shaped as ``tent``) the candidate
+    words of gathered ELL rows: ``rows_n``/``rows_w`` (cap, D) are the
+    rows of the compacted vertices ``fidx`` (global ids, ``n`` for
+    padding slots). ``target`` is ``tent`` itself on one device, an INF
+    buffer that a sharded backend merges across ranks.
+
+    Over ``[B, n]`` lanes (``fidx`` [B, cap], rows [B, cap, D]) the
+    batch is one flat tent of ``B * n`` words: lane b's ids are offset
+    by ``b * n`` and its sentinel becomes the flat sentinel ``B * n``,
+    so the single-lane ops run on it unchanged."""
     if tent.dim() == 1:
         words = ell_relax_words(tent, fidx, rows_n, rows_w, n=n,
                                 packed=packed, canonical=canonical)
-        return _scatter_min(tent, rows_n, words, inf_word(packed))
+        return _scatter_min(target, rows_n, words, inf_word(packed))
     b, dd = tent.shape[0], rows_n.shape[-1]
     off = torch.arange(b, dtype=torch.int64, device=tent.device) * n
 
@@ -240,7 +257,7 @@ def ell_sweep(tent, fidx, nbr, w_ell, *, n: int, packed: bool,
                             flat_rows, rows_w.reshape(-1, dd), n=b * n,
                             packed=packed, canonical=canonical,
                             src=fidx.reshape(-1))
-    return _scatter_min(tent.reshape(-1), flat_rows, words,
+    return _scatter_min(target.reshape(-1), flat_rows, words,
                         inf_word(packed)).reshape(b, n)
 
 
@@ -272,6 +289,10 @@ class _FrontierCompactMixin:
 
     def compact(self, mask):
         return compact_ref(mask, self.cap, self.n), mask.sum(-1) > self.cap
+
+    def full_width(self):
+        """This backend with a capacity that cannot overflow."""
+        return dataclasses.replace(self, cap=self.n)
 
 
 class _PallasScanMixin:
@@ -485,7 +506,241 @@ class GridPallasBackend(_PallasScanMixin, RelaxBackend):
         return out.reshape(-1), None      # no frontier buffer to overflow
 
 
-_SHARDED = ("sharded_edge", "sharded_ell", "sharded_fused")
+# ---------------------------------------------------------------------------
+# multi-GPU backends (DESIGN.md §9): one process per GPU, the shards'
+# candidate buffers merged by collectives of torch.distributed
+# ---------------------------------------------------------------------------
+
+def group_size() -> int:
+    """Ranks of the initialised default process group; 1 without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def resolve_n_shards(n_shards) -> int:
+    """Concrete shard count for a config's ``n_shards``. ``None`` means
+    every rank of the process group (1 without a group: one shard, no
+    collective — a 1-device mesh). Each rank is one shard, so the
+    count is 1 (every rank solves the whole graph alone) or the
+    group's size; anything else raises, naming the group's size. The
+    reference bounds it by its device count instead."""
+    size = group_size()
+    if n_shards is None:
+        return size
+    if n_shards not in (1, size):
+        raise ValueError(
+            f"n_shards={n_shards}: the process group has {size} rank(s), "
+            "and a sharded strategy runs one shard per rank (launch "
+            f"n_shards processes, e.g. torchrun --nproc-per-node "
+            f"{n_shards}) or a single shard (n_shards=1)")
+    return int(n_shards)
+
+
+def _shard_group(n_shards):
+    """``(shards, rank, group)`` of a sharded backend: the process group
+    where it spans the initialised group (collectives run, even over a
+    single rank), ``None`` for one shard without (no collective)."""
+    shards = resolve_n_shards(n_shards)
+    if shards == group_size() and dist.is_available() \
+            and dist.is_initialized():
+        return shards, dist.get_rank(), dist.group.WORLD
+    return shards, 0, None
+
+
+def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """``t`` reduced in place over ``group`` with ``op`` (a
+    ``dist.ReduceOp``), returned. NCCL takes CUDA tensors, gloo CPU and
+    CUDA tensors."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _ShardedMixin:
+    """Cross-shard combines of the sharded backends: ``pmin`` and
+    ``pmax`` become ``all_reduce(MIN / MAX)`` over ``group`` (no
+    collective where it is ``None``). Flags travel as uint8, never
+    bool. Consumers declare ``n_shards``, ``rank`` and ``group``."""
+
+    def _min(self, t: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return t
+        return all_reduce(t, dist.ReduceOp.MIN, self.group)
+
+    def _any(self, flags: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return flags
+        return all_reduce(flags.to(torch.uint8), dist.ReduceOp.MAX,
+                          self.group).bool()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEdgeBackend(_ShardedMixin, RelaxBackend):
+    """Edge-centric strategy over the ranks of a process group: every
+    rank sweeps its own edge shard (``graphs.partition.partition_edges``
+    row ownership; its padding dropped, whose words are INF) into a
+    full-width candidate buffer, the buffers are merged with an
+    ``all_reduce(MIN)`` and folded into the replicated tent. Min is
+    associative and commutative on the tent words — int32 distances or
+    packed int64 (cost, pred) — so the result is bitwise the
+    single-device ``edge`` backend's for any shard count (DESIGN.md
+    §9). Takes ``[B, n]`` lanes as ``edge`` does."""
+
+    src: torch.Tensor                     # this rank's edges
+    dst: torch.Tensor
+    dst64: torch.Tensor
+    w: torch.Tensor
+    delta: int
+    n: int
+    n_shards: int
+    rank: int
+    group: object
+    canonical: bool
+
+    @classmethod
+    def build(cls, graph: COOGraph, cfg) -> "ShardedEdgeBackend":
+        shards, rank, group = _shard_group(cfg.n_shards)
+        part = partition_edges(graph, shards, device="cpu")
+        real = part.src[rank] < graph.n_nodes
+        src, dst, w = (t[rank][real].to(graph.device)
+                       for t in (part.src, part.dst, part.w))
+        return cls(src, dst, dst.to(torch.int64), w, cfg.delta,
+                   graph.n_nodes, shards, rank, group,
+                   graph_is_canonical(graph))
+
+    def sweep(self, tent, mask, bucket_i, *, light: bool, packed: bool):
+        words = edge_relax_words(tent, mask, self.src, self.dst, self.w,
+                                 delta=self.delta, light=light,
+                                 packed=packed, canonical=self.canonical)
+        buf = torch.full_like(tent, inf_word(packed)).scatter_reduce_(
+            -1, self.dst64.expand_as(words), words, "amin",
+            include_self=True)
+        tent = torch.minimum(tent, self._min(buf))
+        return tent, torch.zeros(tent.shape[:-1], dtype=torch.bool,
+                                 device=tent.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllBackend(_ShardedMixin, RelaxBackend):
+    """Frontier-centric strategy over the ranks of a process group: each
+    rank compacts the frontier slice of its owned vertex range and
+    expands its own light/heavy ELL row block
+    (``graphs.partition.partition_ell``; only this rank's block is on
+    its device), then the candidates merge with the same
+    ``all_reduce(MIN)`` as ``sharded_edge``. ``cap`` is the *per-shard*
+    compaction capacity (default: the whole owned range, which cannot
+    overflow); the overflow flag is combined with ``all_reduce(MAX)``.
+    Takes ``[B, n]`` lanes as ``ell`` does."""
+
+    light_nbr: torch.Tensor               # int32[S + 1, D], global ids
+    light_w: torch.Tensor
+    heavy_nbr: torch.Tensor
+    heavy_w: torch.Tensor
+    delta: int
+    n: int
+    shard_nodes: int
+    n_shards: int
+    rank: int
+    group: object
+    cap: int
+    canonical: bool
+
+    @classmethod
+    def build(cls, graph: COOGraph, cfg) -> "ShardedEllBackend":
+        shards, rank, group = _shard_group(cfg.n_shards)
+        part = partition_ell(graph, shards, cfg.delta, device="cpu")
+        blocks = (t[rank].to(graph.device, copy=True) for t in
+                  (part.light_nbr, part.light_w, part.heavy_nbr,
+                   part.heavy_w))
+        cap = min(cfg.frontier_cap or part.shard_nodes, part.shard_nodes)
+        return cls(*blocks, cfg.delta, graph.n_nodes, part.shard_nodes,
+                   shards, rank, group, cap, graph_is_canonical(graph))
+
+    def full_width(self):
+        """This backend with a per-shard capacity that cannot overflow."""
+        return dataclasses.replace(self, cap=self.shard_nodes)
+
+    def _local(self, x: torch.Tensor, fill) -> torch.Tensor:
+        """This rank's slice ``[rank * S, (rank + 1) * S)`` of the last
+        axis, padded with ``fill`` past ``n`` (a view where it needs no
+        padding)."""
+        lo = self.rank * self.shard_nodes
+        hi = lo + self.shard_nodes
+        if hi <= self.n:
+            return x[..., lo:hi]
+        pad = x.new_full(x.shape[:-1] + (hi - max(lo, self.n),), fill)
+        return torch.cat([x[..., lo:], pad], -1)
+
+    def sweep(self, tent, mask, bucket_i, *, light: bool, packed: bool):
+        nbr, w_ell = ((self.light_nbr, self.light_w) if light
+                      else (self.heavy_nbr, self.heavy_w))
+        s = self.shard_nodes
+        local = self._local(mask, False)
+        lidx = compact_ref(local, self.cap, s)
+        over = local.sum(-1) > self.cap
+        # global ids of the compacted rows; sentinel slots gather INF
+        gidx = torch.where(lidx < s, lidx + self.rank * s, self.n)
+        buf = rows_min(torch.full_like(tent, inf_word(packed)), tent, gidx,
+                       nbr[lidx], w_ell[lidx], n=self.n, packed=packed,
+                       canonical=self.canonical)
+        return torch.minimum(tent, self._min(buf)), self._any(over)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFusedBackend(ShardedEllBackend):
+    """Fused frontier strategy over the ranks of a process group: each
+    rank runs the ``kernels/frontier_relax`` step on its *owned* vertex
+    slice (scan + compaction + row gather of its own ELL block, global
+    ids: ``base = rank · S``, padding ``sent = n``; on CUDA the
+    hand-written kernels), then the iteration's state updates merge with
+    collectives — the tent words through the same ``all_reduce(MIN)``
+    as every sharded backend, ``explored`` through ``MIN`` (each rank
+    lowers only its owned frontier entries, and a frontier member's
+    tent is strictly below its explored mark, so the element-wise min
+    over the ranks' copies is the single-device update), and the
+    settled mask, any and overflow flags through ``MAX`` as uint8 in
+    one collective. Ownership is disjoint and min/max are associative
+    and commutative, so the result is bitwise the single-device
+    ``fused`` iteration's for any shard count. A batch runs lane by
+    lane, as ``fused`` does."""
+
+    supports_fused_light = True
+    supports_vmap = False
+
+    def fused_iter(self, tent, explored, in_s, bucket_i, *, packed: bool):
+        d = dist_of(tent, packed)
+        fidx, rows_n, rows_w, count, any_, _ = frontier_relax(
+            self._local(d, _INF), self._local(explored, _INF), bucket_i,
+            self.light_nbr, self.light_w, delta=self.delta, cap=self.cap,
+            base=self.rank * self.shard_nodes, sent=self.n)
+        explored = _scatter_set(explored, fidx, _take(d, fidx, _INF))
+        in_s = _scatter_set(in_s, fidx, True)
+        buf = rows_min(torch.full_like(tent, inf_word(packed)), tent, fidx,
+                       rows_n, rows_w, n=self.n, packed=packed,
+                       canonical=self.canonical)
+        flags = torch.cat([in_s, any_.reshape(1),
+                           (count > self.cap).reshape(1)])
+        if self.group is not None:
+            n = self.n
+            if packed:
+                buf, explored = self._min(buf), self._min(explored)
+            else:
+                merged = self._min(torch.cat([buf, explored]))
+                buf, explored = merged[:n], merged[n:]
+            flags = self._any(flags)
+        tent = torch.minimum(tent, buf)
+        return tent, explored, flags[:-2], flags[-2], flags[-1]
+
+    def fused_next(self, dist, explored, bucket_i):
+        """Replicated next-bucket min: the post-heavy scan runs on the
+        already-merged tent, so the plain scan is bitwise (the same
+        formulas as the kernel's output), as in the reference."""
+        return scan_bucket(dist, explored, bucket_i, delta=self.delta)[2]
+
+
+_SHARDED = {"sharded_edge": ShardedEdgeBackend,
+            "sharded_ell": ShardedEllBackend,
+            "sharded_fused": ShardedFusedBackend}
 
 
 def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
@@ -494,7 +749,8 @@ def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
     grid-stencil kernel instead of the ELL kernels (other strategies
     ignore it). ``cfg="auto"`` consults the tuner (the zero-measurement
     estimator, DESIGN.md §7) on the graph's device. The sharded
-    strategies are not ported yet and raise."""
+    strategies shard over the initialised process group (one shard
+    without one)."""
     if isinstance(cfg, str):
         from repro_torch.tune import resolve_config   # tune imports core
         if cfg != "auto":
@@ -502,9 +758,7 @@ def make_backend(graph: COOGraph, cfg, free_mask=None) -> RelaxBackend:
         cfg = resolve_config(graph, free_mask=free_mask, sources=None,
                              device=graph.device)
     if cfg.strategy in _SHARDED:
-        raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 5, multi-GPU)")
+        return _SHARDED[cfg.strategy].build(graph, cfg)
     if cfg.strategy == "edge":
         return EdgeBackend.build(graph, cfg)
     if cfg.strategy == "ell":
@@ -529,6 +783,10 @@ __all__ = [
     "GridPallasBackend",
     "PallasEllBackend",
     "RelaxBackend",
+    "ShardedEdgeBackend",
+    "ShardedEllBackend",
+    "ShardedFusedBackend",
+    "all_reduce",
     "candidate_words",
     "dist_of",
     "edge_candidates",
@@ -537,7 +795,10 @@ __all__ = [
     "ell_relax_words",
     "ell_sweep",
     "graph_is_canonical",
+    "group_size",
     "init_tent",
     "make_backend",
+    "resolve_n_shards",
+    "rows_min",
     "scan_bucket",
 ]

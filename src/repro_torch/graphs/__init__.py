@@ -1,4 +1,5 @@
-"""Graph substrate of the PyTorch port: containers and generators."""
+"""Graph substrate of the PyTorch port: containers, generators and the
+vertex partitions of the multi-GPU strategies."""
 from repro_torch.graphs.structures import (
     INF32,
     COOGraph,
@@ -9,6 +10,12 @@ from repro_torch.graphs.structures import (
     csr_to_ell,
     light_heavy_split,
     union_with_reverse,
+)
+from repro_torch.graphs.partition import (
+    ELLPartition,
+    VertexPartition,
+    partition_edges,
+    partition_ell,
 )
 from repro_torch.graphs.generators import (
     grid_map,
@@ -28,6 +35,10 @@ __all__ = [
     "csr_to_ell",
     "light_heavy_split",
     "union_with_reverse",
+    "ELLPartition",
+    "VertexPartition",
+    "partition_edges",
+    "partition_ell",
     "watts_strogatz",
     "rmat",
     "grid_map",

@@ -17,7 +17,10 @@ loop in lane batches of ``--batch``. ``--tune`` tunes the tenant's
 operating point by measured search at graph load; ``--tune-cache PATH``
 persists and reuses the record (alone: a cache hit or the
 zero-measurement estimator). LM decode (``--arch``) is not ported
-(ROADMAP Queue 1 item 6).
+(ROADMAP Queue 1 item 6), nor sharded serving (``--strategy
+sharded_*``, ``--shards``; ROADMAP Queue 1 item 7): ``Server`` forms
+batches from arrival times, so the ranks of a process group would form
+different batches unless every rank followed rank 0's batch plan.
 """
 from __future__ import annotations
 
@@ -94,8 +97,13 @@ def main(argv=None):
     ap.add_argument("--degree", type=int, default=12)
     ap.add_argument("--delta", type=int, default=10)
     ap.add_argument("--strategy", default="edge",
-                    choices=["edge", "ell", "fused"],
-                    help="relaxation strategy")
+                    choices=["edge", "ell", "fused", "sharded_edge",
+                             "sharded_ell", "sharded_fused"],
+                    help="relaxation strategy (sharded_*: not ported, "
+                         "ROADMAP Queue 1 item 7)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded_* strategies: not ported (ROADMAP "
+                         "Queue 1 item 7)")
     ap.add_argument("--policy", default="delta",
                     choices=["delta", "rho", "radius"],
                     help="frontier-selection policy (DESIGN.md §15)")
@@ -116,6 +124,11 @@ def main(argv=None):
         raise NotImplementedError(
             "LM decode serving (--arch) is not ported to repro_torch yet "
             "(ROADMAP Queue 1 item 6)")
+    if args.strategy.startswith("sharded") or args.shards is not None:
+        raise NotImplementedError(
+            "sharded serving (--strategy sharded_*, --shards) is not ported "
+            "to repro_torch yet: every rank must follow rank 0's batch plan "
+            "(ROADMAP Queue 1 item 7)")
     if not args.sssp:
         ap.error("--sssp is required (LM serving is not ported)")
     _serve_sssp(args)

@@ -15,6 +15,12 @@
   PYTHONPATH=src python -m repro_torch.launch.sssp --nodes 100000 \\
       --tune --tune-cache tuning.json --verify
 
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.sssp \\
+      --nodes 20000 --device cpu --strategy sharded_edge --verify
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.sssp \\
+      --nodes 20000 --device cpu --devices 2 --sources 4 --verify
+
 Flag names follow ``repro.launch.sssp``. The solve runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 first solve builds the CUDA kernels and warms up; the second is timed.
@@ -39,11 +45,41 @@ reuses tuned records across runs: with ``--tune-cache`` alone, a cache
 hit (or the zero-measurement estimator) picks the config without a
 search. Either prints the tuned point and the record's source
 (``measured``, ``cache`` or ``heuristic``).
+
+Multi-GPU: under ``torchrun`` (``WORLD_SIZE`` in the environment) the
+launcher initialises the default process group from the environment —
+NCCL with ``cuda:LOCAL_RANK``, or gloo with ``--device cpu`` — every
+rank runs the same solve and only rank 0 prints. ``--strategy
+sharded_edge|sharded_ell|sharded_fused`` shards the relaxation over the
+group's ranks inside the unified engine (``--shards``: the group's size,
+the default, or 1); ``--devices M`` runs the distributed engine
+(``repro_torch.core.distributed``) on a ``(ranks / M) x M`` mesh
+(``data`` x ``model``) with ``--combine`` and ``--local-steps``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+
+def _init_group(device):
+    """Under ``torchrun``: initialise the default process group from the
+    environment (NCCL on ``cuda:LOCAL_RANK``, gloo with a CPU device)
+    and return this rank's device and ``True``; else ``(device,
+    False)``."""
+    if "WORLD_SIZE" not in os.environ:
+        return device, False
+    import torch
+    import torch.distributed as dist
+
+    if device is not None and torch.device(device).type == "cpu":
+        dist.init_process_group("gloo")
+        return device, True
+    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=local)
+    return local, True
 
 
 def main(argv=None):
@@ -55,7 +91,21 @@ def main(argv=None):
     ap.add_argument("--p", type=float, default=1e-2)
     ap.add_argument("--delta", type=int, default=10)
     ap.add_argument("--strategy", default="edge",
-                    choices=["edge", "ell", "pallas", "fused"])
+                    choices=["edge", "ell", "pallas", "fused",
+                             "sharded_edge", "sharded_ell", "sharded_fused"])
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded_* strategies: shard count (default: "
+                         "every rank of the process group)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="distributed engine: model-dim width, the rest "
+                         "of the group's ranks split the sources (0 = the "
+                         "unified engine)")
+    ap.add_argument("--combine", default="reduce_scatter",
+                    choices=["allreduce", "reduce_scatter"],
+                    help="distributed engine: min-combine schedule")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="distributed engine: local light sweeps between "
+                         "collectives")
     ap.add_argument("--pred-mode", default="argmin",
                     choices=["none", "argmin", "packed"])
     ap.add_argument("--policy", default="delta",
@@ -96,11 +146,28 @@ def main(argv=None):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    device, owns_group = _init_group(args.device)
+    try:
+        _run(args, device, np, torch)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, np, torch):
     from repro_torch.api import (Engine, MultiSource, PointToPoint,
                                  SingleSource, Tuning)
-    from repro_torch.core import DeltaConfig, dijkstra
+    from repro_torch.core import DeltaConfig, dijkstra, resolve_n_shards
+    from repro_torch.core.backends import group_size
     from repro_torch.graphs import grid_map, rmat, watts_strogatz
+
+    rank0 = group_size() == 1 or torch.distributed.get_rank() == 0
+
+    def say(line):                              # rank 0 prints
+        if rank0:
+            print(line)
 
     t0 = time.perf_counter()
     free = None
@@ -113,19 +180,22 @@ def main(argv=None):
         side = int(np.sqrt(args.nodes))
         g, free = grid_map(side, side, 0.1, seed=0)
         args.delta = 13
-    print(f"[sssp] graph {args.graph}: |V|={g.n_nodes} |E|={g.n_edges} "
-          f"({time.perf_counter() - t0:.1f}s to generate)")
+    say(f"[sssp] graph {args.graph}: |V|={g.n_nodes} |E|={g.n_edges} "
+        f"({time.perf_counter() - t0:.1f}s to generate)")
 
+    sources = list(range(args.sources))
+    if args.devices:
+        _run_distributed(args, device, g, sources, say, np, torch)
+        return
     cfg = DeltaConfig(delta=args.delta, strategy=args.strategy,
                       pred_mode=args.pred_mode, policy=args.policy,
-                      rho=args.rho, radius_k=args.radius_k)
-    sources = list(range(args.sources))
+                      rho=args.rho, radius_k=args.radius_k,
+                      n_shards=args.shards)
     tuned = args.tune or args.tune_cache is not None
     tuning = (Tuning(measure=args.tune, cache=args.tune_cache) if tuned
               else None)
     t0 = time.perf_counter()
-    engine = Engine(g, cfg, free_mask=free, tuning=tuning,
-                    device=args.device)
+    engine = Engine(g, cfg, free_mask=free, tuning=tuning, device=device)
     # sources= the ones solved below: a tuning-chosen frontier cap is
     # validated against exactly these
     plan = engine.plan(sources=sources)
@@ -134,12 +204,16 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     if tuned:
-        print(f"[sssp] tuned config: Δ={cfg.delta} strategy={cfg.strategy} "
-              f"policy={cfg.policy} cap={cfg.frontier_cap} "
-              f"record={plan.record.source} "
-              f"({time.perf_counter() - t0:.1f}s to tune on {name})")
+        say(f"[sssp] tuned config: Δ={cfg.delta} strategy={cfg.strategy} "
+            f"policy={cfg.policy} cap={cfg.frontier_cap} "
+            f"record={plan.record.source} "
+            f"({time.perf_counter() - t0:.1f}s to tune on {name})")
     elif cfg.policy != "delta":
-        print(f"[sssp] frontier policy: {cfg.policy}")
+        say(f"[sssp] frontier policy: {cfg.policy}")
+    if cfg.strategy.startswith("sharded"):
+        say(f"[sssp] sharded relaxation over "
+            f"{resolve_n_shards(cfg.n_shards)} shard(s) of a "
+            f"{group_size()}-rank group")
     if args.target is not None:
         mode = args.p2p_mode
         build = ""
@@ -156,15 +230,15 @@ def main(argv=None):
         r = plan.solve(q)
         dt = time.perf_counter() - t0
         hops = 0 if r.path is None else len(r.path) - 1
-        print(f"[sssp] p2p {sources[0]}->{args.target} on {name}: "
-              f"dist={r.distance} "
-              f"hops={hops} buckets={r.telemetry.buckets} "
-              f"inner_iters={r.telemetry.inner_iters} ({mode}{build}), "
-              f"{dt * 1e3:.1f} ms, host syncs={plan.host_syncs}")
+        say(f"[sssp] p2p {sources[0]}->{args.target} on {name}: "
+            f"dist={r.distance} "
+            f"hops={hops} buckets={r.telemetry.buckets} "
+            f"inner_iters={r.telemetry.inner_iters} ({mode}{build}), "
+            f"{dt * 1e3:.1f} ms, host syncs={plan.host_syncs}")
         if args.verify:
             ref, _ = dijkstra(g, sources[0])
             ok = int(ref[args.target]) == r.distance
-            print(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
+            say(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit(1)
         return
@@ -181,15 +255,60 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     tel = r.telemetry
     batch = f", batched x{len(sources)}" if len(sources) > 1 else ""
-    print(f"[sssp] Δ={cfg.delta} ({cfg.strategy}, {cfg.pred_mode}{batch}) "
-          f"on {name}: {dt * 1e3 / len(sources):.1f} ms/source, "
-          f"buckets={int(torch.as_tensor(tel.buckets).max())}, "
-          f"light sweeps={int(torch.as_tensor(tel.inner_iters).max())}, "
-          f"host syncs={plan.host_syncs}")
+    say(f"[sssp] Δ={cfg.delta} ({cfg.strategy}, {cfg.pred_mode}{batch}) "
+        f"on {name}: {dt * 1e3 / len(sources):.1f} ms/source, "
+        f"buckets={int(torch.as_tensor(tel.buckets).max())}, "
+        f"light sweeps={int(torch.as_tensor(tel.inner_iters).max())}, "
+        f"host syncs={plan.host_syncs}")
     if args.verify:
         ref, _ = dijkstra(g, sources[0])
         ok = np.array_equal(dist[0].astype(np.int64), ref)
-        print(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
+        say(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(1)
+
+
+def _run_distributed(args, device, g, sources, say, np, torch):
+    """The distributed engine on a ``(ranks / --devices) x --devices``
+    mesh; lane 0 verified on every rank."""
+    from repro_torch.core import dijkstra
+    from repro_torch.core.backends import group_size
+    from repro_torch.core.distributed import (DistDeltaConfig,
+                                              build_distributed_solver)
+    from repro_torch.device import resolve_device
+    from repro_torch.graphs import partition_edges
+
+    dev = resolve_device(device)
+    ranks, model = group_size(), args.devices
+    if ranks % model:
+        raise ValueError(f"--devices {model} does not divide the group's "
+                         f"{ranks} rank(s)")
+    mesh = None
+    if torch.distributed.is_initialized():
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh(dev.type, (ranks // model, model),
+                                mesh_dim_names=("data", "model"))
+    elif model != 1:
+        raise ValueError(f"--devices {model} needs a process group of "
+                         "that many ranks (torchrun)")
+    solve = build_distributed_solver(
+        partition_edges(g, model, device="cpu"), mesh,
+        DistDeltaConfig(delta=args.delta, combine=args.combine,
+                        local_steps=args.local_steps), device=dev)
+    solve(sources)                              # kernel-free warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    dist, outer, inner = solve(sources)
+    dist = dist.cpu().numpy()
+    dt = time.perf_counter() - t0
+    say(f"[sssp] distributed ({ranks // model}x{model}, {args.combine}, "
+        f"local steps {args.local_steps}): {dt * 1e3:.1f} ms, "
+        f"buckets={outer}, light sweeps={inner}")
+    if args.verify:
+        ref, _ = dijkstra(g, sources[0])
+        ok = np.array_equal(dist[0].astype(np.int64), ref)
+        say(f"[sssp] verify vs Dijkstra: {'OK' if ok else 'MISMATCH'}")
         if not ok:
             raise SystemExit(1)
 

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.backends import group_size
 from repro_torch.graphs.structures import COOGraph
 
 # Calibration constant of the Δ ≈ c·w̄/d̄ rule (see module docstring).
@@ -117,10 +118,13 @@ def estimate_delta(stats: GraphStats, c: float = DELTA_C) -> int:
 
 def _device_term(device) -> str:
     """``torch-<type><count>``: the framework, and the device type the
-    graph lives on with the number of such devices visible."""
+    graph lives on with the number of such devices visible; in a
+    process group of more than one rank ``-r<ranks>`` follows, so a
+    record measured on 4 ranks never keys a 1-rank run."""
     dev = torch.device(device)
     count = torch.cuda.device_count() if dev.type == "cuda" else 1
-    return f"torch-{dev.type}{count}"
+    ranks = group_size()
+    return f"torch-{dev.type}{count}" + (f"-r{ranks}" if ranks > 1 else "")
 
 
 def fingerprint(stats: GraphStats, device) -> str:
@@ -128,8 +132,9 @@ def fingerprint(stats: GraphStats, device) -> str:
     reference's string up to ``:dev=``, character for character. The
     reference ends in ``jax.device_count()``; the port names the
     framework and ``device``'s type and count instead (``torch-cuda1``,
-    ``torch-cpu1``), so a key built by one package never matches a key
-    built by the other, nor one built for other hardware."""
+    ``torch-cpu1``; ``-r<ranks>`` appended in a group of more than one
+    rank), so a key built by one package never matches a key built by
+    the other, nor one built for other hardware or another group size."""
     if stats.ecc0 < 0:
         raise ValueError(
             "stats were computed with probe_ecc=False — no cache key "

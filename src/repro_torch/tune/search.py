@@ -19,11 +19,18 @@ kind of hardware never keys another. A timed solve ends in
 Where the port differs from the reference: ``_candidate_solver``
 rejects a candidate only when its probe solve overflows or when its
 plan refuses the config (``ValueError`` / ``NotImplementedError``, e.g.
-a grid plan under a non-delta policy, or a strategy not ported yet).
+a grid plan under a non-delta policy).
 Any other error — a kernel that fails to build or launch, a CUDA error
 — propagates out of ``tune``: the reference scores such a candidate as
 ``inf`` and may fall back to the heuristic record, which would hide a
 broken kernel behind a quietly rejected candidate.
+
+In a process group of more than one rank (one process per GPU) the
+sharded strategies join the strategy axis, every rank runs the same
+search, and each candidate's time is the maximum over the ranks
+(``all_reduce(MAX)``) before ranking, so every rank keeps the same
+survivors and the same record (a rank that picked another winner would
+hang the next collective). Only rank 0 writes the cache file.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.backends import all_reduce, group_size, resolve_n_shards
 from repro_torch.core.delta_stepping import DeltaConfig, DeltaSteppingSolver
 from repro_torch.device import resolve_device
 from repro_torch.graphs.structures import COOGraph
@@ -158,11 +167,13 @@ def heuristic_record(
 
 
 def default_strategies() -> Tuple[str, ...]:
-    """The tuner's default strategy axis: ``("edge", "ell", "fused")``,
-    whatever the number of visible devices. The reference adds its
-    mesh-sharded strategies when more than one device is visible; the
-    port adds them with its sharded backends (ROADMAP Queue 1 item 5),
-    whose fingerprint term already carries the device count."""
+    """The tuner's default strategy axis: the single-device strategies
+    always, plus the sharded ones in a process group of more than one
+    rank (the reference adds them where it sees more than one device);
+    the group's size is pinned by the fingerprint's ``:dev=`` term."""
+    if group_size() > 1:
+        return ("edge", "ell", "fused", "sharded_edge", "sharded_ell",
+                "sharded_fused")
     return ("edge", "ell", "fused")
 
 
@@ -338,6 +349,15 @@ def tune(
         stats, strategies=strategies, deltas=deltas,
         cap_fractions=cap_fractions, policies=policies,
     )
+    if group_size() > 1:
+        local_fn = measure_fn
+
+        def measure_fn(delta, strat, cap, policy, reps):
+            # the slowest rank's time: the same on every rank
+            t = torch.tensor([local_fn(delta, strat, cap, policy, reps)],
+                             dtype=torch.float64, device=dev)
+            return float(all_reduce(t, dist.ReduceOp.MAX, dist.group.WORLD))
+
     reps = 1
     evidence = {}  # candidate -> its latest (best-sampled) measurement
     timed = []
@@ -363,10 +383,9 @@ def tune(
         reps *= 2
 
     best_t, (delta, strat, cap, policy) = timed[0]
-    if strat.startswith("sharded"):
-        raise NotImplementedError(
-            f"strategy {strat!r} won the search, but the sharded strategies "
-            "are not ported to repro_torch yet (ROADMAP Queue 1 item 5)")
+    # a sharded winner pins the shard count it was measured on
+    shards = (resolve_n_shards(base.n_shards) if strat.startswith("sharded")
+              else None)
     record = TuningRecord(
         fingerprint=fp,
         delta=delta,
@@ -378,11 +397,13 @@ def tune(
             (d, s, -1 if c is None else c, p, round(t * 1e6, 1))
             for (d, s, c, p), t in sorted(evidence.items(), key=lambda kv: kv[1])
         ),
+        n_shards=shards,
         policy=policy,
     )
     if cache is not None:
         cache.put(record)
-        cache.save()
+        if group_size() == 1 or dist.get_rank() == 0:
+            cache.save()
     return record
 
 

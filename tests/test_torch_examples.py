@@ -1,0 +1,30 @@
+"""The port's example twins (``examples/torch_*.py``) run end to end on
+the CPU (``--device cpu``), each in a process of its own with a time
+limit, as their originals run: every twin asserts its own answers
+against Dijkstra or the other engine, and the quickstart stays clean
+under ``-W error::DeprecationWarning``. ``torch_multi_source_sssp.py``
+spawns its 8 gloo ranks itself (the reference's 2 x 4 layout)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+LIMIT_S = 120
+
+
+@pytest.mark.parametrize("script,flags,expect", [
+    ("torch_quickstart.py", ["-W", "error::DeprecationWarning"],
+     "serving tier:"),
+    ("torch_multi_source_sssp.py", [], "reduce_scatter:"),
+    ("torch_sssp_gamemap.py", [], "engines agree on cpu"),
+])
+def test_example_twin_runs_on_cpu(script, flags, expect):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, *flags, str(ROOT / "examples" / script), "--device",
+         "cpu"], env=env, capture_output=True, text=True, timeout=LIMIT_S)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert expect in out.stdout, out.stdout

@@ -1,14 +1,16 @@
 """Isolation and entry-point contract of the PyTorch port.
 
-* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of the reference package ``repro`` (AST scan).
+* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and no
+  example twin (``examples/torch_*.py``) imports ``jax`` or anything of
+  the reference package ``repro`` (AST scan).
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (the sharded strategies, LM serving; the batched
-  queries, the frontier policies, dynamic updates, the landmark modes,
-  tuning, the deprecated solver shims and the SSSP serving tier are
-  ported); the launcher runs end to end on the CPU with --verify.
+  ROADMAP item (LM serving, sharded serving; the batched queries, the
+  frontier policies, dynamic updates, the landmark modes, tuning, the
+  deprecated solver shims, the SSSP serving tier and the sharded
+  strategies are ported); the launcher runs end to end on the CPU with
+  --verify.
 """
 import ast
 from pathlib import Path
@@ -30,7 +32,7 @@ from repro_torch.graphs import watts_strogatz
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path):
@@ -59,7 +61,12 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/tune/cache.py",
                  "src/repro_torch/serve/server.py",
                  "src/repro_torch/launch/serve.py",
-                 "src/repro_torch/api/engine.py", "chip_smoke.py"):
+                 "src/repro_torch/api/engine.py",
+                 "src/repro_torch/graphs/partition.py",
+                 "src/repro_torch/core/distributed.py",
+                 "examples/torch_quickstart.py",
+                 "examples/torch_multi_source_sssp.py",
+                 "examples/torch_sssp_gamemap.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -85,11 +92,18 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
 def test_unported_parts_raise_with_roadmap_item():
     g = watts_strogatz(20, 4, 0.1, seed=0)
     cfg = DeltaConfig(delta=5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Engine(g, DeltaConfig(strategy="sharded_edge"), device="cpu").plan()
     from repro_torch.launch.serve import main as serve_main
     with pytest.raises(NotImplementedError, match="item 6"):
         serve_main(["--arch", "gemma2-9b"])
+    for flags in (["--strategy", "sharded_edge"], ["--shards", "2"]):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            serve_main(["--sssp", "--device", "cpu"] + flags)
+    # ported: the sharded strategies (one shard without a process group)
+    for strategy in ("sharded_edge", "sharded_ell", "sharded_fused"):
+        res = Engine(g, DeltaConfig(delta=5, strategy=strategy),
+                     device="cpu").plan().solve(SingleSource(0))
+        assert torch.equal(res.dist, Engine(g, cfg, device="cpu").plan()
+                           .solve(SingleSource(0)).dist)
     # ported: tuning and the deprecated shims
     assert Engine(g, device="cpu").plan().record.source == "heuristic"
     assert Engine(g, cfg, tuning="auto", device="cpu").plan().config.delta \
@@ -129,6 +143,11 @@ def test_delta_config_validates_like_reference():
 
 @pytest.mark.parametrize("strategy,pred_mode,extra", [
     pytest.param("fused", "argmin", [], id="fused-argmin"),
+    pytest.param("sharded_fused", "packed", [], id="sharded_fused-packed"),
+    pytest.param("edge", "argmin", ["--devices", "1", "--sources", "2",
+                                    "--combine", "allreduce",
+                                    "--local-steps", "2"],
+                 id="distributed-1x1"),
     pytest.param("pallas", "packed", [], id="pallas-packed"),
     pytest.param("edge", "argmin", ["--target", "321", "--p2p-mode", "alt",
                                     "--landmarks", "2"], id="edge-argmin-alt"),
@@ -139,5 +158,7 @@ def test_launcher_runs_on_cpu_with_verify(capsys, strategy, pred_mode, extra):
           "--pred-mode", pred_mode, "--device", "cpu", "--verify"] + extra)
     out = capsys.readouterr().out
     assert "verify vs Dijkstra: OK" in out
-    if extra:
+    if "--p2p-mode" in extra:
         assert "(alt, k=2 landmark tables in" in out
+    if "--devices" in extra:
+        assert "distributed (1x1, allreduce, local steps 2)" in out

@@ -153,9 +153,10 @@ def test_candidate_configs_equal_reference(axes):
 
 
 def test_default_axes_pinned(monkeypatch):
-    """The strategy axis is the reference's single-device one, whatever
-    the number of visible devices, until the sharded strategies are
-    ported (ROADMAP Queue 1 item 5)."""
+    """Without a process group the strategy axis is the reference's
+    single-device one, whatever the number of visible devices: the port
+    shards over the ranks of a group, not over devices (the axis of a
+    4-rank group is checked in ``tests/test_torch_sharded.py``)."""
     assert default_strategies() == jdefault_strategies() == (
         "edge", "ell", "fused")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
