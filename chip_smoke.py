@@ -85,7 +85,7 @@
    at each path's shapes (``bucket_scan`` runs on the small-world and
    the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
    kernels line sums every path's counted runs (phases 3, 5, 8, 9, 11,
-   12);
+   12, 13, 14);
    ``by_path`` gives each path's launches and numbers, and the entry's
    ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
    weighted by those launches, so they move when a path is added.
@@ -93,8 +93,9 @@
 8. Batched queries and frontier policies, on the graphs above (run
    after phase 4; the game-map part at the end of phase 5). On the
    1 M-vertex small-world graph: ``MultiSource`` of 8 fixed sources (0
-   and seven spread ids) on ``edge`` and ``ell`` (one ``[B, n]`` loop,
-   fewer host syncs than the lanes' single solves together), of 2
+   and seven spread ids) on ``edge``, and of the first 4 of them on
+   ``ell`` (one ``[B, n]`` loop, fewer host syncs than the lanes' single
+   solves together), of 2
    sources on ``pallas`` and ``fused`` (lane by lane through the
    kernels, launches equal to the lanes' per-solve equations); every
    lane bitwise equal to ``edge``'s ``SingleSource`` of its source
@@ -149,12 +150,13 @@
    batches (update + warm resolve, split into update, host repair
    planning, warm backend, device loop and the rest, each part checked
    to be timed, with host syncs) and three ``resolve(warm=False)``, the
-   first held equal to the warm answer. At the second k every strategy
-   takes the counted batch only. The others take the counted batches
+   first held equal to the warm answer. At the second k only ``edge``
+   and ``fused`` (argmin) take a batch, the counted one. The others take
+   the counted batches
    only (so after the first k their weights are not ``edge``'s, and
    each is held to its own ``resolve(warm=False)``). ``rho`` and
    ``radius`` (k = 4) on ``edge``: one counted warm batch equal to the
-   cold solve of the updated graph. ``square_lattice(500,
+   cold solve of the updated graph. ``square_lattice(400,
    weighted=True)`` under ``edge``, ``pallas`` and ``fused``: the tree
    edge into the vertex farthest from the source raised by 7 and
    restored, each warm answer equal to the cold one with far fewer
@@ -242,8 +244,9 @@
    equal to phase 3 on both ranks, rank ``r`` launching
    ``frontier_relax`` ``buckets + inner_iters`` times at ``base = r *
    500 000``; the distributed engine on the ``(1, 2)`` and ``(2, 1)``
-   meshes under both combines and ``local_steps`` 1 and 2, ``dist`` of
-   sources 0 and 131 071 equal to scipy's. (c) ``frontier_relax``
+   meshes of ``launch.mesh.make_host_mesh`` under both combines and
+   ``local_steps`` 1 and 2, ``dist`` of sources 0 and 131 071 equal to
+   scipy's. (c) ``frontier_relax``
    against its twin (``torch.equal`` on all six outputs) on shard 1's
    slice of ``partition_ell(g, 2, 10)`` (S = 500 000, ``base`` = S,
    ``sent`` = n) at three of phase 2's recorded mid-solve states, the
@@ -253,6 +256,28 @@
    (d) The three example twins (``examples/torch_*.py``) on the card,
    as processes of their own; the quickstart under ``-W
    error::DeprecationWarning``.
+14. Sharded serving (run after phase 13, in its one-rank NCCL group), on
+   the 1 M-vertex small-world graph at Δ = 10. (a) ``Server(lane_width=2)``
+   with a ``sharded_edge`` tenant (``SingleSource(0)``, then a seeded
+   slice of phase 12's mix: 8 requests from seed 35) and a
+   ``sharded_fused`` tenant (``SingleSource(0)`` and ``PointToPoint(0,
+   777 777)``, one lane batch), every request queued before the
+   background loop starts, the counters set to 0 just before and read
+   just after: ``frontier_relax`` launched ``buckets + inner_iters``
+   times per fused lane and nothing else launched (the path
+   ``sharded_serve``); the fused answers equal to phase 3's ``fused``
+   solve (a valid path of that distance), the edge tenant's
+   ``SingleSource(0)`` equal to phase 3's ``edge`` solve and every edge
+   ticket equal to a serial solve on a fresh ``sharded_edge`` plan with
+   the updates applied in order. (b) Two gloo ranks on the card
+   (``chip_smoke.py --serve-rank R 2 DIR``) serving the edge tenant's
+   requests: rank 0 submits half, idles ``SSERVE_PAUSE_S`` against a
+   control-channel timeout of ``SSERVE_TIMEOUT_S``, submits the rest and
+   closes; rank 0's answers equal (a)'s, both ranks' ``stats()`` counts
+   are equal, and both exit 0. (c) The serving launcher under
+   ``torchrun`` with one NCCL rank, ``--strategy sharded_fused
+   --shards 1`` at ``--nodes 1000000 --degree 20``, exits 0 after
+   answering its requests. (b) and (c) run beside (a).
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -309,12 +334,16 @@ BATCH_SOURCES = (0, 131_071, 262_147, 393_209, 524_287, 655_357, 786_431,
 M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
                                720_887, 851_957, 999_999)
 M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
+ELL_BATCH = 4                  # ell's MultiSource: the first 4 sources
 SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 # phase 9: 0.1 % and 1 % of |E| per batch, two id sets per k (bench
 # protocol), the strategies timed, and the lattice
 DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
 DYN_TIMED = ("edge", "pallas")
-LATTICE_SIDE, LATTICE_STRATEGIES = 500, ("edge", "pallas", "fused")
+# the plans that also take the second k (edge: the oracle; fused: the
+# kernel path)
+DYN_WIDE = (("edge", "argmin"), ("fused", "argmin"))
+LATTICE_SIDE, LATTICE_STRATEGIES = 400, ("edge", "pallas", "fused")
 # phase 10: landmarks per plan, the update batch size (phase 9's
 # protocol), the point-to-point modes
 LANDMARK_K, LM_DYN_K = 4, 20_000
@@ -327,6 +356,11 @@ SERVE_LANES, SERVE_RESIDENT, SERVE_REQUESTS, SERVE_UPDATE_EDGES = 8, 2, 48, 16
 # phase 13: gloo ranks on the one card, the distributed engine's sources
 # (one per data row on the (2, 1) mesh), each subprocess's time limit
 SHARD_RANKS, SHARD_SOURCES, SHARD_LIMIT_S = 2, (0, 131_071), 400
+# phase 14: lanes, the slice of phase 12's mix (its seed and length),
+# the fused tenant's point-to-point target, the control channel's
+# timeout and the idle pause of the gloo ranks' server
+SSERVE_LANES, SSERVE_SEED, SSERVE_REQUESTS, SSERVE_TARGET = 2, 35, 8, 777_777
+SSERVE_TIMEOUT_S, SSERVE_PAUSE_S = 1.0, 3.0
 
 
 def check(cond, what: str) -> None:
@@ -990,24 +1024,27 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
 
     # -- 8b. MultiSource on edge and ell: one [B, n] loop -----------------
     batch = {}
-    # ell's batch takes ~11 s on the H100 (8 lanes of the sentinel-slot
+    # ell's batch takes ~1.5 s a lane on the H100 (the sentinel-slot
     # scatter, PERF.md §6) and its runs spread by 0.1 %: one timed run
-    for st, reps in (("edge", 3), ("ell", 1)):
+    # of the first ELL_BATCH sources
+    for st, reps, srcs in (("edge", 3, BATCH_SOURCES),
+                           ("ell", 1, BATCH_SOURCES[:ELL_BATCH])):
         plan = plans[(st, "argmin")]
         zero()
         res, walls = walls_ms(
-            torch, lambda: plan.solve(MultiSource(list(BATCH_SOURCES))), reps)
+            torch, lambda: plan.solve(MultiSource(list(srcs))), reps)
         check(all(v == 0 for v in read().values()),
               f"{st} MultiSource launched a kernel")
-        same_lanes(torch, res, [single[s] for s in BATCH_SOURCES],
+        same_lanes(torch, res, [single[s] for s in srcs],
                    f"{st} MultiSource")
-        check(plan.host_syncs < sum(single_syncs.values()),
+        alone = sum(single_syncs[s] for s in srcs)
+        check(plan.host_syncs < alone,
               f"{st} MultiSource: no fewer host syncs than its lanes")
         batch[st] = res
-        log(f"[batch] {st} MultiSource x{len(BATCH_SOURCES)} (one [B, n] "
+        log(f"[batch] {st} MultiSource x{len(srcs)} (one [B, n] "
             f"loop): lanes == SingleSource, host_syncs={plan.host_syncs} "
-            f"(lanes alone: {sum(single_syncs.values())}); {fmt(walls)} = "
-            f"{statistics.median(walls) / len(BATCH_SOURCES):.1f} ms/source "
+            f"(lanes alone: {alone}); {fmt(walls)} = "
+            f"{statistics.median(walls) / len(srcs):.1f} ms/source "
             f"(edge SingleSource median "
             f"{statistics.median(single_walls):.1f} ms)")
     lane = 3
@@ -1385,7 +1422,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
         timed_b = [seq[3], seq[0], seq[1]]
         oracle = None
         refs = []       # (weights, warm answer, plan) of this k, per weights
-        for key in keys:
+        for key in keys if first else DYN_WIDE:
             st, pm = key
             plan = plans[key]
             timed = first and st in DYN_TIMED
@@ -2185,7 +2222,7 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
                                               build_distributed_solver)
     from repro_torch.graphs import coo_from_numpy, partition_edges
     from repro_torch.kernels.frontier_relax import frontier_relax_cuda
-    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import make_host_mesh
 
     work = Path(work)
     cuda = torch.device("cuda", 0)
@@ -2226,7 +2263,7 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
         out[f"{st}/ms"] = np.array([build * 1e3, wall * 1e3])
     backends.frontier_relax = real_fr
     for shape in ((1, 2), (2, 1)):
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = make_host_mesh(*shape)      # gloo: a "cpu" mesh
         part = partition_edges(g, shape[1], device="cpu")
         for combine in ("allreduce", "reduce_scatter"):
             for ls in (1, 2):
@@ -2247,15 +2284,15 @@ def sharded_rank(rank: int, world: int, work: str) -> int:
 
 def sharded_path(torch, np, cuda, g, results, ref_dist, fr_records,
                  counters):
-    """Phase 13: the multi-GPU path (see the module note). Returns the
-    launches of the one-rank NCCL solves (``sharded_nccl1``) and of the
-    two gloo ranks (``sharded``), and the ``sharded`` path's recorded
+    """Phase 13: the multi-GPU path (see the module note), (a) in the
+    one-rank NCCL group the caller started. Returns the launches of the
+    one-rank NCCL solves (``sharded_nccl1``) and of the two gloo ranks
+    (``sharded``), and the ``sharded`` path's recorded
     ``frontier_relax`` input: shard 1's slice at the largest of the
     recorded mid-solve states."""
     import os
     import tempfile
 
-    import torch.distributed as dist
     from repro_torch.api import Engine, SingleSource
     from repro_torch.core import DeltaConfig
     from repro_torch.graphs import partition_ell
@@ -2295,44 +2332,36 @@ def sharded_path(torch, np, cuda, g, results, ref_dist, fr_records,
          str(r), str(SHARD_RANKS), str(wdir)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
 
-    # (a) a one-rank NCCL group in this process
-    dist.init_process_group("nccl", store=dist.FileStore(
-        str(wdir / "nccl_store"), 1), rank=0, world_size=1, device_id=cuda)
+    # (a) the one-rank NCCL group the caller started in this process
     launches_1 = dict.fromkeys(counters, 0)
-    try:
-        for st, pm, ref_key in (("sharded_edge", "argmin", ("edge", "argmin")),
-                                ("sharded_ell", "argmin", ("ell", "argmin")),
-                                ("sharded_fused", "argmin",
-                                 ("fused", "argmin")),
-                                ("sharded_fused", "packed",
-                                 ("fused", "packed"))):
-            t0 = time.perf_counter()
-            plan = Engine(g, DeltaConfig(delta=DELTA, strategy=st,
-                                         pred_mode=pm), device=cuda).plan()
-            build = time.perf_counter() - t0
-            zero()
-            res, first = walls_ms(torch, lambda: plan.solve(SingleSource(0)),
-                                  1)
-            got = read()
-            same_as(res, ref_key, f"{st}/{pm} on a one-rank NCCL group")
-            t = res.telemetry
-            want = dict.fromkeys(counters, 0)
-            if st == "sharded_fused":
-                want["frontier_relax"] = t.buckets + t.inner_iters
-            check(got == want, f"{st}/{pm}: launches {got}, not {want}")
-            for k, v in got.items():
-                launches_1[k] += v
-            _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 3)
-            base_ms = results[ref_key][2] * 1e3
-            log(f"[sharded] nccl x1 {st}/{pm}: == phase 3's "
-                f"{ref_key[0]}/{ref_key[1]} (dist, pred, buckets="
-                f"{t.buckets}, inner_iters={t.inner_iters}, overflow); "
-                f"launches {json.dumps(got)}; plan {build:.1f} s, first "
-                f"solve {first[0]:.1f} ms (phase 3's {base_ms:.1f}); "
-                f"{fmt(walls)}; host_syncs={plan.host_syncs}")
-            del plan
-    finally:
-        dist.destroy_process_group()
+    for st, pm, ref_key in (("sharded_edge", "argmin", ("edge", "argmin")),
+                            ("sharded_ell", "argmin", ("ell", "argmin")),
+                            ("sharded_fused", "argmin", ("fused", "argmin")),
+                            ("sharded_fused", "packed", ("fused", "packed"))):
+        t0 = time.perf_counter()
+        plan = Engine(g, DeltaConfig(delta=DELTA, strategy=st,
+                                     pred_mode=pm), device=cuda).plan()
+        build = time.perf_counter() - t0
+        zero()
+        res, first = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 1)
+        got = read()
+        same_as(res, ref_key, f"{st}/{pm} on a one-rank NCCL group")
+        t = res.telemetry
+        want = dict.fromkeys(counters, 0)
+        if st == "sharded_fused":
+            want["frontier_relax"] = t.buckets + t.inner_iters
+        check(got == want, f"{st}/{pm}: launches {got}, not {want}")
+        for k, v in got.items():
+            launches_1[k] += v
+        _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 3)
+        base_ms = results[ref_key][2] * 1e3
+        log(f"[sharded] nccl x1 {st}/{pm}: == phase 3's "
+            f"{ref_key[0]}/{ref_key[1]} (dist, pred, buckets="
+            f"{t.buckets}, inner_iters={t.inner_iters}, overflow); "
+            f"launches {json.dumps(got)}; plan {build:.1f} s, first "
+            f"solve {first[0]:.1f} ms (phase 3's {base_ms:.1f}); "
+            f"{fmt(walls)}; host_syncs={plan.host_syncs}")
+        del plan
     check(launches_1["frontier_relax"] > 0,
           "sharded_fused did not launch frontier_relax")
 
@@ -2429,6 +2458,292 @@ def sharded_path(torch, np, cuda, g, results, ref_dist, fr_records,
         f"{SHARD_RANKS} {json.dumps(launches_2)}")
     log(f"[sharded] phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return launches_1, launches_2, shard[big]
+
+# -- phase 14: sharded serving ----------------------------------------------
+
+def serve_rank(rank: int, world: int, work: str) -> int:
+    """One rank of phase 14's gloo group on the script's card (run as
+    ``chip_smoke.py --serve-rank RANK WORLD DIR``): the ``sharded_edge``
+    tenant of phase 14 over the 2 ranks. Rank 0 submits the first half
+    of the tenant's requests, starts the background loop, waits for
+    their answers, idles ``SSERVE_PAUSE_S`` (the control channel's
+    timeout is ``SSERVE_TIMEOUT_S`` here), submits the rest and closes;
+    rank 1 runs rank 0's batch plan in ``close()``. Saves the answers
+    (rank 0), ``stats()`` and wall times to ``DIR/serve<RANK>.npz``."""
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.serve.server as server_mod
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import coo_from_numpy
+
+    work = Path(work)
+    cuda = torch.device("cuda", 0)
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    server_mod._CONTROL_TIMEOUT = datetime.timedelta(
+        seconds=SSERVE_TIMEOUT_S)
+    data = np.load(work / "graph.npz")
+    g = coo_from_numpy(data["src"], data["dst"], data["w"], int(data["n"]),
+                       device=cuda)
+    with open(work / "stream.pkl", "rb") as f:   # the parent's queries
+        stream = pickle.load(f)
+    t0 = time.perf_counter()
+    srv = server_mod.Server(lane_width=SSERVE_LANES, device=cuda)
+    srv.admit("edge", g, config=DeltaConfig(delta=DELTA,
+                                            strategy="sharded_edge"))
+    tickets = []
+    if rank == 0:
+        half = len(stream) // 2
+        tickets = [srv.submit(q, graph="edge") for q in stream[:half]]
+        srv.start()
+        for t in tickets:
+            t.result(timeout=SHARD_LIMIT_S)
+        time.sleep(SSERVE_PAUSE_S)      # rank 1 waits on the channel
+        tickets += [srv.submit(q, graph="edge") for q in stream[half:]]
+        for t in tickets:
+            t.result(timeout=SHARD_LIMIT_S)
+    srv.close()
+    wall = time.perf_counter() - t0
+    stats = srv.stats()
+    out = {"stats": np.array([json.dumps(
+        {k: stats[k] for k in ("batches", "mean_occupancy", "resident",
+                               "plans_built", "evictions", "completed")})]),
+        "wall_s": np.array([wall])}
+    for k, t in enumerate(tickets):
+        for field, v in answer_fields(t.result(0)).items():
+            out[f"{k}/{field}"] = v
+    dist.destroy_process_group()
+    np.savez(work / f"serve{rank}.npz", **out)
+    return 0
+
+
+def answer_fields(res) -> dict:
+    """A served answer as host arrays: ``dist``/``pred``, a matrix, a
+    distance and path, or an update's edge count."""
+    import numpy as np
+    out = {"type": np.array([type(res).__name__])}
+    for field in ("dist", "pred", "matrix"):
+        if hasattr(res, field):
+            v = getattr(res, field)
+            out[field] = v.cpu().numpy() if hasattr(v, "cpu") else \
+                np.asarray(v)
+    if hasattr(res, "distance"):
+        out["distance"] = np.array([res.distance])
+        out["path"] = np.array(res.path if res.path is not None else [],
+                               np.int64)
+    if hasattr(res, "n_edges"):
+        out["n_edges"] = np.array([res.n_edges])
+    return out
+
+
+def sharded_serving_path(torch, np, cuda, g, results, keyed, counters):
+    """Phase 14: sharded serving (see the module note), (a) in the
+    one-rank NCCL group the caller started. Returns the launches of the
+    served ``sharded_fused`` tenant (``sharded_serve``)."""
+    import os
+    import pickle
+    import tempfile
+
+    from repro_torch.api import (BoundedRadius, Engine, ManyToMany,
+                                 PointToPoint, SingleSource, UpdateBatch)
+    from repro_torch.core import DeltaConfig
+    from repro_torch.serve import Server
+
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    wdir = Path(work.name)
+    # the sharded_edge tenant's requests: SingleSource(0), then a seeded
+    # slice of phase 12's mix; the sharded_fused tenant's: two lanes from
+    # source 0, both checked against phase 3's answer
+    edge_qs = [SingleSource(0)] + [q for _, q in serve_traffic(
+        np, {"edge": g}, SSERVE_REQUESTS, seed=SSERVE_SEED)]
+    fused_qs = [SingleSource(0), PointToPoint(0, SSERVE_TARGET)]
+    log("[sserve] requests: edge " + ", ".join(
+        type(q).__name__ for q in edge_qs) + "; fused " + ", ".join(
+        type(q).__name__ for q in fused_qs))
+
+    # (b) and (c) are started first: two gloo ranks on this card, and the
+    # launcher under torchrun, in processes of their own
+    np.savez(wdir / "graph.npz", src=g.src.cpu().numpy(),
+             dst=g.dst.cpu().numpy(), w=g.w.cpu().numpy(), n=g.n_nodes)
+    with open(wdir / "stream.pkl", "wb") as f:
+        pickle.dump(edge_qs, f)
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-rank",
+         str(r), str(SHARD_RANKS), str(wdir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve", "--sssp",
+         "--nodes", str(N_NODES), "--degree", str(DEGREE), "--strategy",
+         "sharded_fused", "--shards", "1", "--requests", "2", "--batch", "2"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # (a) both tenants through the background loop: every request is
+    # queued before the loop starts, so the batches are the same on
+    # every run (the fused tenant's two lanes are one batch)
+    srv = Server(lane_width=SSERVE_LANES, device=cuda)
+    builds = {}
+    for name, st in (("edge", "sharded_edge"), ("fused", "sharded_fused")):
+        srv.admit(name, g, config=DeltaConfig(delta=DELTA, strategy=st))
+        t0 = time.perf_counter()
+        srv.plan(name)                  # built before serving
+        builds[name] = time.perf_counter() - t0
+    tickets = {"fused": [srv.submit(q, graph="fused") for q in fused_qs],
+               "edge": [srv.submit(q, graph="edge") for q in edge_qs]}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with srv:
+        pass
+    serve_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = srv.stats()
+    # each batch's time (t_done - t_batch: the solve and the answers'
+    # split), from its first ticket
+    batches = {}
+    for name, ts in tickets.items():
+        for t in ts:
+            tr = t.trace
+            key = (name, tr.t_batch)
+            if key not in batches:
+                lanes = (SSERVE_LANES if tr.kind in (
+                    "SingleSource", "PointToPoint", "BoundedRadius") else 1)
+                batches[key] = (tr.kind, lanes,
+                                (tr.t_done - tr.t_batch) * 1e3)
+    for name, ts in tickets.items():
+        for q, t in zip(edge_qs if name == "edge" else fused_qs, ts):
+            exc = t.exception(0)
+            check(exc is None, f"{name} {type(q).__name__}: ended in "
+                  f"{type(exc).__name__}: {exc}")
+    fused = [t.result(0) for t in tickets["fused"]]
+    per_lane = sum(r.telemetry.buckets + r.telemetry.inner_iters
+                   for r in fused)
+    want = dict.fromkeys(counters, 0)
+    want["frontier_relax"] = per_lane
+    check(launches == want, f"served launches {launches}, not {want} (the "
+          "fused tenant's lanes alone launch, frontier_relax)")
+    log(f"[sserve] nccl x1: plans built in "
+        f"{', '.join(f'{k} {v:.1f} s' for k, v in builds.items())}; "
+        f"{len(edge_qs) + len(fused_qs)} requests served in {serve_s:.1f} "
+        f"s; launches {json.dumps(launches)}; stats " + json.dumps(stats))
+    log("[sserve] nccl x1 batches (tenant, first kind, lanes: ms, ms a "
+        "lane): " + "; ".join(
+            f"{name} {kind} x{lanes}: {ms:.1f}, {ms / lanes:.1f}"
+            for (name, _), (kind, lanes, ms) in batches.items()))
+
+    # the fused tenant against phase 3's fused solve of source 0
+    base = results[("fused", "argmin")][0]
+    ss, p2p = fused
+    check(torch.equal(ss.dist, base.dist) and torch.equal(ss.pred, base.pred)
+          and (ss.telemetry.buckets, ss.telemetry.inner_iters,
+               ss.telemetry.overflow) == (base.telemetry.buckets,
+                                          base.telemetry.inner_iters,
+                                          base.telemetry.overflow),
+          "served sharded_fused SingleSource(0) differs from phase 3's")
+    check(p2p.distance == int(base.dist[SSERVE_TARGET]),
+          "served sharded_fused PointToPoint: distance differs")
+    check_path(p2p.path, 0, SSERVE_TARGET, p2p.distance, keyed, g.n_nodes)
+    log(f"[sserve] fused tenant: SingleSource(0) == phase 3's fused solve "
+        f"(dist, pred, buckets, inner_iters, overflow); PointToPoint(0, "
+        f"{SSERVE_TARGET}) distance {p2p.distance} == phase 3's, path valid")
+
+    # the edge tenant against serial solves on a fresh plan, the updates
+    # applied in the same order; SingleSource(0) against phase 3's edge
+    base = results[("edge", "argmin")][0]
+    got0 = tickets["edge"][0].result(0)
+    check(torch.equal(got0.dist, base.dist)
+          and torch.equal(got0.pred, base.pred),
+          "served sharded_edge SingleSource(0) differs from phase 3's")
+    t0 = time.perf_counter()
+    plan = Engine(g, DeltaConfig(delta=DELTA, strategy="sharded_edge"),
+                  device=cuda).plan(fallback=True)
+    updated = False
+    for q, t in zip(edge_qs, tickets["edge"]):
+        got = t.result(0)
+        if isinstance(q, UpdateBatch):
+            plan.update(q.edge_ids, q.new_weights)
+            updated = True
+            continue
+        ref = plan.solve(q)
+        tag = f"edge {type(q).__name__}"
+        if isinstance(q, (SingleSource, BoundedRadius)):
+            check(torch.equal(got.dist, ref.dist)
+                  and torch.equal(got.pred, ref.pred),
+                  f"{tag}: differs from the serial solve")
+        elif isinstance(q, ManyToMany):
+            check(torch.equal(got.matrix, ref.matrix),
+                  f"{tag}: differs from the serial solve")
+        else:
+            check(got.distance == ref.distance,
+                  f"{tag}: distance differs from the serial solve")
+            if got.path is not None and not updated:
+                check_path(got.path, q.source, q.target, got.distance, keyed,
+                           g.n_nodes)
+            elif got.path is not None:
+                check(got.path[0] == q.source and got.path[-1] == q.target,
+                      f"{tag}: path endpoints")
+    torch.cuda.synchronize()
+    log(f"[sserve] edge tenant: {len(edge_qs)} tickets == serial solves on "
+        f"a fresh sharded_edge plan in {time.perf_counter() - t0:.1f} s; "
+        "SingleSource(0) == phase 3's edge solve")
+
+    # (b) the gloo ranks: rank 0's answers are (a)'s, the counts agree
+    for r, p in enumerate(ranks):
+        try:
+            text, _ = p.communicate(timeout=SHARD_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            for q in ranks + [launcher]:
+                q.kill()
+            raise RuntimeError(f"check failed: serving gloo rank {r} ran "
+                               f"past {SHARD_LIMIT_S} s")
+        check(p.returncode == 0,
+              f"serving gloo rank {r} failed:\n{text[-3000:]}")
+    got = [dict(np.load(wdir / f"serve{r}.npz")) for r in range(SHARD_RANKS)]
+    counts = [json.loads(str(o["stats"][0])) for o in got]
+    check(counts[0] == dict(counts[1], completed=counts[0]["completed"])
+          and counts[0]["completed"] == len(edge_qs)
+          and counts[1]["completed"] == 0,
+          f"gloo ranks' stats() counts differ: {counts}")
+    for k, (q, t) in enumerate(zip(edge_qs, tickets["edge"])):
+        mine = answer_fields(t.result(0))
+        for field, v in mine.items():
+            check(np.array_equal(got[0][f"{k}/{field}"], v),
+                  f"gloo rank 0 request {k} ({type(q).__name__}): {field} "
+                  "differs from the one-rank server's")
+    log(f"[sserve] gloo x{SHARD_RANKS}: rank 0's {len(edge_qs)} answers == "
+        f"the one-rank server's; both ranks' counts {json.dumps(counts[1])}"
+        f" (rank 0 completed {counts[0]['completed']}); an idle pause of "
+        f"{SSERVE_PAUSE_S} s against a {SSERVE_TIMEOUT_S} s channel "
+        f"timeout; rank 1 exited 0; walls "
+        f"{[round(float(o['wall_s'][0]), 1) for o in got]} s")
+    work.cleanup()
+
+    # (c) the launcher under torchrun, one NCCL rank
+    try:
+        text, _ = launcher.communicate(timeout=SHARD_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        launcher.kill()
+        raise RuntimeError("check failed: the serving launcher ran past "
+                           f"{SHARD_LIMIT_S} s")
+    lines = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+    check(launcher.returncode == 0
+          and "[serve] mesh-sharded relaxation over 1 rank(s)" in lines
+          and any(ln.startswith("[serve] answered 2 SSSP queries")
+                  for ln in lines),
+          f"the serving launcher under torchrun failed:\n{text[-3000:]}")
+    log("[sserve] launcher (torchrun, 1 NCCL rank, sharded_fused, "
+        f"|V|={N_NODES}): " + " | ".join(lines))
+    log(f"[sserve] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2818,16 +3133,34 @@ def main() -> int:
     by_path.update(serve_launches)
     records.update(serve_records)
 
-    # -- 13. the multi-GPU path: sharded strategies, distributed engine ----
-    launches_nccl1, launches_gloo, shard_record = sharded_path(
-        torch, np, cuda, g, results, ref_dist, rec["frontier_relax"],
-        counters)
+    # -- 13/14. the multi-GPU path and sharded serving, in one one-rank
+    # NCCL group of this process (a FileStore in a temporary directory)
+    import tempfile
+
+    import torch.distributed as tdist
+    group_dir = tempfile.TemporaryDirectory()
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(Path(group_dir.name) / "store"), 1), rank=0, world_size=1,
+        device_id=cuda)
+    try:
+        # -- 13. sharded strategies, distributed engine ------------------
+        launches_nccl1, launches_gloo, shard_record = sharded_path(
+            torch, np, cuda, g, results, ref_dist, rec["frontier_relax"],
+            counters)
+        # -- 14. sharded serving ------------------------------------------
+        launches_sserve = sharded_serving_path(
+            torch, np, cuda, g, results, keyed, counters)
+    finally:
+        tdist.destroy_process_group()
+        group_dir.cleanup()
     # a one-rank shard is the whole graph at base 0: phase 3's fused
-    # solve's inputs (checked bitwise above)
-    by_path.update(sharded_nccl1=launches_nccl1, sharded=launches_gloo)
+    # solve's inputs (checked bitwise above), in both phases
+    by_path.update(sharded_nccl1=launches_nccl1, sharded=launches_gloo,
+                   sharded_serve=launches_sserve)
     records.update(
         sharded_nccl1={"frontier_relax": main_case["frontier_relax"]},
-        sharded={"frontier_relax": shard_record})
+        sharded={"frontier_relax": shard_record},
+        sharded_serve={"frontier_relax": main_case["frontier_relax"]})
     launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
 
     kernels = []
@@ -3005,7 +3338,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--sharded-rank"]:
-        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
-                              sys.argv[4]))
+    child = {"--sharded-rank": sharded_rank, "--serve-rank": serve_rank}
+    if sys.argv[1:2] and sys.argv[1] in child:
+        sys.exit(child[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]),
+                                    sys.argv[4]))
     sys.exit(main())

@@ -70,9 +70,8 @@ def distributed(device):
     model = world // data
     mesh = None
     if dist.is_initialized():
-        from torch.distributed.device_mesh import init_device_mesh
-        mesh = init_device_mesh(torch.device(device).type, (data, model),
-                                mesh_dim_names=("data", "model"))
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(data, model)
     part = partition_edges(g, model, device="cpu")
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     if rank0:

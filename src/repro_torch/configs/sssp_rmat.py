@@ -1,0 +1,8 @@
+"""Arch config: sssp-rmat (family: sssp). Exact spec in sssp_archs.py."""
+from repro_torch.configs.sssp_archs import SSSP_RMAT as CONFIG, smoke as _smoke
+
+FAMILY = "sssp"
+
+
+def smoke():
+    return _smoke(CONFIG)

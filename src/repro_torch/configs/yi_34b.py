@@ -1,0 +1,8 @@
+"""Arch config: yi-34b (family: lm). Exact spec in lm_archs.py."""
+from repro_torch.configs.lm_archs import YI_34B as CONFIG, smoke as _smoke
+
+FAMILY = "lm"
+
+
+def smoke():
+    return _smoke(CONFIG)

@@ -32,7 +32,8 @@ Without a mesh the engine runs one shard and one data row in-process,
 with no collective.
 
 The dry-run's ``input_specs_sssp`` is not ported (ROADMAP Queue 1 item
-6, with ``launch/dryrun.py``).
+6f, with ``launch/dryrun.py``). ``repro_torch.launch.mesh.make_host_mesh``
+builds the mesh this engine takes.
 """
 from __future__ import annotations
 

@@ -7,6 +7,9 @@ async serving tier (``repro_torch.serve.Server``, DESIGN.md §13).
   PYTHONPATH=src python -m repro_torch.launch.serve --sssp --device cpu \\
       --nodes 3000 --requests 12 --batch 4
 
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --sssp --device cpu --nodes 3000 --strategy sharded_edge --shards 2
+
 Flag names follow ``repro.launch.serve``. The server runs on CUDA unless
 ``--device cpu`` is given (then the kernels' plain twins run). The
 graph is ``watts_strogatz(--nodes, --degree, 1e-2, seed=0)``; one
@@ -16,11 +19,15 @@ graph is ``watts_strogatz(--nodes, --degree, 1e-2, seed=0)``; one
 loop in lane batches of ``--batch``. ``--tune`` tunes the tenant's
 operating point by measured search at graph load; ``--tune-cache PATH``
 persists and reuses the record (alone: a cache hit or the
-zero-measurement estimator). LM decode (``--arch``) is not ported
-(ROADMAP Queue 1 item 6), nor sharded serving (``--strategy
-sharded_*``, ``--shards``; ROADMAP Queue 1 item 7): ``Server`` forms
-batches from arrival times, so the ranks of a process group would form
-different batches unless every rank followed rank 0's batch plan.
+zero-measurement estimator).
+
+Under ``torchrun`` the launcher starts the process group as
+``launch.sssp`` does (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``); ``--strategy sharded_edge|sharded_ell|sharded_fused`` then
+shards the tenant's relaxation over the group's ranks (``--shards``:
+the group's size, the default, or 1). Rank 0 submits the request
+stream and prints; the other ranks run its batch plan. LM decode
+(``--arch``) is not ported (ROADMAP Queue 1 item 6e).
 """
 from __future__ import annotations
 
@@ -28,50 +35,64 @@ import argparse
 import time
 
 
-def _serve_sssp(args):
+def _serve_sssp(args, device):
     import numpy as np
     import torch
 
     from repro_torch.api import PointToPoint, SingleSource, Tuning
-    from repro_torch.core import DeltaConfig
+    from repro_torch.core import DeltaConfig, resolve_n_shards
+    from repro_torch.core.backends import group_size
     from repro_torch.graphs import watts_strogatz
     from repro_torch.serve import Server
 
+    rank0 = group_size() == 1 or torch.distributed.get_rank() == 0
+
+    def say(line):                              # rank 0 prints
+        if rank0:
+            print(line)
+
     g = watts_strogatz(args.nodes, args.degree, 1e-2, seed=0)
     t0 = time.perf_counter()
-    # the concrete config is the tuning *base*: --strategy and --policy
-    # survive tuning as non-searched fields
+    # the concrete config is the tuning *base*: --strategy, --shards and
+    # --policy survive tuning as non-searched fields
     auto = args.tune or args.tune_cache is not None
     config = DeltaConfig(delta=args.delta, strategy=args.strategy,
-                         policy=args.policy, rho=args.rho)
+                         n_shards=args.shards, policy=args.policy,
+                         rho=args.rho)
     if not auto and args.policy != "delta":
-        print(f"[serve] frontier policy: {args.policy}")
+        say(f"[serve] frontier policy: {args.policy}")
+    if not auto and args.strategy.startswith("sharded"):
+        say(f"[serve] mesh-sharded relaxation over "
+            f"{resolve_n_shards(args.shards)} rank(s)")
     tuning = Tuning(measure=args.tune, cache=args.tune_cache) if auto \
         else None
     srv = Server(g, config=config, tuning=tuning, lane_width=args.batch,
-                 device=args.device)
+                 device=device)
     dev = srv.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    if auto:
+    if auto and rank0:
         plan = srv.plan()
         cfg, rec = plan.config, plan.record
         print(f"[serve] tuned at graph load on {name}: Δ={cfg.delta} "
               f"strategy={cfg.strategy} policy={cfg.policy} "
               f"cap={cfg.frontier_cap} record={rec.source} "
               f"({time.perf_counter() - t0:.1f}s)")
-    srv.submit(SingleSource(0))
-    srv.drain()                                 # kernel build + warm-up
+    if rank0:
+        srv.submit(SingleSource(0))
+    srv.drain()             # kernel build + warm-up (other ranks: follow)
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     tickets = []
     with srv:                                   # continuous batch loop
-        for i in range(args.requests):
+        for i in range(args.requests if rank0 else 0):
             # mix of full distance-vector and point-to-point queries
             src = int(rng.integers(g.n_nodes))
             q = (PointToPoint(src, int(rng.integers(g.n_nodes)))
                  if i % 2 else SingleSource(src))
             tickets.append(srv.submit(q))
         results = [t.result() for t in tickets]
+    if not rank0:
+        return
     dt = time.perf_counter() - t0
     n_paths = sum(1 for r in results if getattr(r, "path", None) is not None)
     stats = srv.stats()
@@ -89,7 +110,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
                     help="LM decode serving: not ported (ROADMAP Queue 1 "
-                         "item 6)")
+                         "item 6e)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--sssp", action="store_true",
                     help="serve batched SSSP queries")
@@ -99,11 +120,11 @@ def main(argv=None):
     ap.add_argument("--strategy", default="edge",
                     choices=["edge", "ell", "fused", "sharded_edge",
                              "sharded_ell", "sharded_fused"],
-                    help="relaxation strategy (sharded_*: not ported, "
-                         "ROADMAP Queue 1 item 7)")
+                    help="relaxation strategy (sharded_*: over the ranks "
+                         "of the process group, DESIGN.md §9)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="sharded_* strategies: not ported (ROADMAP "
-                         "Queue 1 item 7)")
+                    help="sharded_* strategies: shard count (default: "
+                         "every rank of the process group)")
     ap.add_argument("--policy", default="delta",
                     choices=["delta", "rho", "radius"],
                     help="frontier-selection policy (DESIGN.md §15)")
@@ -123,15 +144,20 @@ def main(argv=None):
     if args.arch is not None:
         raise NotImplementedError(
             "LM decode serving (--arch) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 6)")
-    if args.strategy.startswith("sharded") or args.shards is not None:
-        raise NotImplementedError(
-            "sharded serving (--strategy sharded_*, --shards) is not ported "
-            "to repro_torch yet: every rank must follow rank 0's batch plan "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 6e)")
     if not args.sssp:
         ap.error("--sssp is required (LM serving is not ported)")
-    _serve_sssp(args)
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_group
+
+    device, owns_group = init_group(args.device)
+    try:
+        _serve_sssp(args, device)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

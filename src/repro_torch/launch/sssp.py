@@ -59,27 +59,7 @@ the default, or 1); ``--devices M`` runs the distributed engine
 from __future__ import annotations
 
 import argparse
-import os
 import time
-
-
-def _init_group(device):
-    """Under ``torchrun``: initialise the default process group from the
-    environment (NCCL on ``cuda:LOCAL_RANK``, gloo with a CPU device)
-    and return this rank's device and ``True``; else ``(device,
-    False)``."""
-    if "WORLD_SIZE" not in os.environ:
-        return device, False
-    import torch
-    import torch.distributed as dist
-
-    if device is not None and torch.device(device).type == "cpu":
-        dist.init_process_group("gloo")
-        return device, True
-    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    torch.cuda.set_device(local)
-    dist.init_process_group("nccl", device_id=local)
-    return local, True
 
 
 def main(argv=None):
@@ -148,7 +128,9 @@ def main(argv=None):
     import torch
     import torch.distributed as dist
 
-    device, owns_group = _init_group(args.device)
+    from repro_torch.launch.mesh import init_group
+
+    device, owns_group = init_group(args.device)
     try:
         _run(args, device, np, torch)
     finally:
@@ -285,9 +267,8 @@ def _run_distributed(args, device, g, sources, say, np, torch):
                          f"{ranks} rank(s)")
     mesh = None
     if torch.distributed.is_initialized():
-        from torch.distributed.device_mesh import init_device_mesh
-        mesh = init_device_mesh(dev.type, (ranks // model, model),
-                                mesh_dim_names=("data", "model"))
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(ranks // model, model)
     elif model != 1:
         raise ValueError(f"--devices {model} needs a process group of "
                          "that many ranks (torchrun)")

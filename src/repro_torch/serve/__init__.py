@@ -11,8 +11,11 @@ control; DESIGN.md §13).
         print(t1.result().dist, t2.result().distance)
     print(srv.stats())   # p50/p99 latency, occupancy, shed counts
 
+In a process group of more than one rank (``sharded_*`` tenants under
+``torchrun``), rank 0 takes the requests and forms every batch; the
+other ranks run its batch plan (``repro_torch.serve.server``'s note).
 The reference's LM-decode batcher and its deprecated ``SSSPServer``
-(``repro.serve.decode``) are ROADMAP Queue 1 item 6.
+(``repro.serve.decode``) are ROADMAP Queue 1 item 6e.
 """
 from repro_torch.serve.server import (
     RequestRejected,

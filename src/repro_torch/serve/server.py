@@ -36,6 +36,24 @@ kernels' twins).
   accepted request is never dropped: every ticket resolves with a
   result or a typed rejection.
 
+* **Process groups.** In an initialised ``torch.distributed`` group of
+  more than one rank, every rank builds the same ``Server`` with the
+  same tenants (one script under ``torchrun``), and rank 0 is the front
+  end: only rank 0 takes ``submit``, forms batches (deadline shedding
+  on its clock, lane packing, update grouping) and keeps tickets.
+  Before it executes a batch, or builds a plan for ``plan()``, it
+  writes the step to the group's store; the other ranks read the steps
+  in order and run the same plan builds, evictions, updates and solves,
+  so every collective of a ``sharded_*`` tenant (and of a measured
+  tuning search) meets the same collective on every rank. Every tenant
+  is solved on every rank, sharded or not. The other ranks wait on the
+  store with a timeout that re-arms while rank 0 idles, never in a
+  collective; ``drain()``, ``close()`` and ``with Server(...)`` serve
+  rank 0's steps there until ``close()`` on rank 0 sends the stop. A
+  ``ValueError`` of a solve (``UpdateRefused`` too) is a ticket
+  rejection on rank 0 and passes on the other ranks; any other
+  exception there propagates.
+
 Per-request telemetry (``Ticket.trace``) records the
 enqueue→batch→solve→extract timestamps and batch occupancy;
 ``Server.stats()`` aggregates them into p50/p99 latency, shed counts
@@ -45,6 +63,9 @@ and occupancy.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import itertools
+import pickle
 import threading
 import time
 from collections import deque
@@ -52,6 +73,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import (
     BoundedRadius,
@@ -68,6 +90,7 @@ from repro_torch.api import (
     UpdateRefused,
     extract_path,
 )
+from repro_torch.core.backends import group_size
 from repro_torch.core.delta_stepping import P2P_MODES
 from repro_torch.device import resolve_device
 from repro_torch.graphs.structures import INF32
@@ -89,6 +112,13 @@ def _lane_able(query) -> bool:
 
 # ``admit``'s default: the tenant resolves with the server's ``tuning``
 _SERVER_TUNING = object()
+
+# how long a rank other than 0 waits on the store for rank 0's next
+# step before it waits again (an idle server never fails)
+_CONTROL_TIMEOUT = datetime.timedelta(seconds=30)
+# every rank builds its servers in the same order, so the n-th server
+# of each rank shares the n-th channel
+_CHANNEL_IDS = itertools.count()
 
 # bounded ring of completed-request latencies backing stats()'s
 # percentiles — enough for a load sweep, O(1) memory under sustained
@@ -208,6 +238,52 @@ class _Batch:
     items: List[_Pending]
 
 
+def _portable(query):
+    """``query`` with its tensors as host numpy arrays, for the other
+    ranks (a CUDA tensor names rank 0's device)."""
+    fields = {f.name: getattr(query, f.name)
+              for f in dataclasses.fields(query)}
+    moved = {k: v.cpu().numpy() for k, v in fields.items()
+             if isinstance(v, torch.Tensor)}
+    return dataclasses.replace(query, **moved) if moved else query
+
+
+class _Channel:
+    """Rank 0's steps to the other ranks of the default process group,
+    through the group's store: step ``k`` is the pickled message under
+    key ``k``, deleted by the last rank to read it. A reader waits for
+    the next key ``timeout`` at a time and waits again while rank 0
+    idles; any store error other than that timeout propagates."""
+
+    def __init__(self, timeout: datetime.timedelta):
+        from torch.distributed.distributed_c10d import _get_default_store
+        self.store = dist.PrefixStore(
+            f"repro_torch.serve/{next(_CHANNEL_IDS)}/", _get_default_store())
+        self.readers = dist.get_world_size() - 1
+        self.timeout = timeout
+        self.seq = 0
+
+    def send(self, msg) -> None:
+        self.store.set(str(self.seq), pickle.dumps(msg))
+        self.seq += 1
+
+    def recv(self):
+        key = str(self.seq)
+        while True:
+            try:
+                self.store.wait([key], self.timeout)
+                break
+            except RuntimeError as e:   # FileStore and TCPStore's timeout
+                if "wait timeout" not in str(e).lower():
+                    raise
+        msg = pickle.loads(self.store.get(key))
+        if self.store.add(f"read/{key}", 1) == self.readers:
+            self.store.delete_key(key)
+            self.store.delete_key(f"read/{key}")
+        self.seq += 1
+        return msg
+
+
 class Server:
     """The serving tier. ``graphs`` is a ``{name: COOGraph}`` mapping
     (or a single graph, admitted as ``"default"``); ``config`` is the
@@ -220,6 +296,10 @@ class Server:
     Inline use: ``submit`` then ``drain()``/``pump()``.
     Async use: ``with Server(...) as srv:`` runs the batch loop on a
     background thread and ``close()`` drains it.
+    In a process group of more than one rank (module note), rank 0 is
+    used as above; on the other ranks ``drain()``, ``close()`` and
+    ``with Server(...)`` run rank 0's steps until its ``close()``, and
+    ``submit``, ``pump`` and ``plan`` raise.
     """
 
     def __init__(
@@ -261,6 +341,13 @@ class Server:
         self._tick = 0
         self._thread: Optional[threading.Thread] = None
         self._closing = False
+        # one order of plan builds and batches on every rank: rank 0
+        # sends each step and runs it under this lock
+        self._order = threading.RLock()
+        self._rank = dist.get_rank() if group_size() > 1 else 0
+        self._channel = (_Channel(_CONTROL_TIMEOUT) if group_size() > 1
+                         else None)
+        self._stopped = False     # the group's stop was sent / received
         # counters behind stats()
         self._submitted = 0
         self._completed = 0
@@ -298,10 +385,26 @@ class Server:
 
     def plan(self, graph: Optional[str] = None):
         """The tenant's resident ``repro_torch.api.Plan`` (built — and LRU-
-        touched — on access)."""
-        with self._lock:
+        touched — on access; in a group, on every rank)."""
+        self._front_end("plan")
+        with self._order, self._lock:
             tenant = self._tenant_locked(graph)
+            self._send(("plan", tenant.name))
             return self._plan_locked(tenant)
+
+    def _front_end(self, what: str) -> None:
+        if self._rank:
+            raise RuntimeError(
+                f"{what}() on rank {self._rank}: in a process group, rank 0 "
+                "is the server's front end and forms every batch; the "
+                "other ranks follow its steps in drain(), close() or "
+                "with Server(...)")
+
+    def _send(self, msg) -> None:
+        """Rank 0: the group's next step, before it runs here."""
+        if self._channel is not None and not self._rank \
+                and not self._stopped:
+            self._channel.send(msg)
 
     def _tenant_locked(self, name: Optional[str]) -> _Tenant:
         if not self._tenants:
@@ -365,6 +468,7 @@ class Server:
         the ticket with a typed ``RequestRejected`` instead of raising,
         so an open-loop generator never blocks on an overloaded server.
         """
+        self._front_end("submit")
         now = self._clock()
         with self._work:
             trace = RequestTrace(tenant=graph or "?",
@@ -416,7 +520,8 @@ class Server:
     def _shed_locked(self, ticket: Ticket, reason: str, detail: str) -> Ticket:
         ticket.trace.shed = reason
         ticket.trace.t_done = self._clock()
-        self._shed[reason] = self._shed.get(reason, 0) + 1
+        if not self._rank:        # tickets are rank 0's
+            self._shed[reason] = self._shed.get(reason, 0) + 1
         ticket._reject(RequestRejected(reason, detail))
         return ticket
 
@@ -470,6 +575,7 @@ class Server:
     def pump(self) -> int:
         """Form and execute one microbatch inline (no worker thread);
         returns the number of requests resolved (0 = nothing queued)."""
+        self._front_end("pump")
         with self._lock:
             batch = self._form_batch_locked()
         if batch is None:
@@ -477,24 +583,58 @@ class Server:
         return self._execute(batch)
 
     def drain(self) -> None:
-        """Serve inline until every queued request has resolved."""
+        """Serve inline until every queued request has resolved (on a
+        group's other ranks: rank 0's steps until its stop)."""
+        if self._rank:
+            return self._follow()
         while self.pump():
             pass
 
-    def _execute(self, batch: _Batch) -> int:
-        try:
-            with self._lock:
-                plan = self._plan_locked(batch.tenant)
-            if batch.kind == "update":
-                self._run_updates(batch, plan)
-            elif batch.kind == "solo":
-                self._run_solo(batch, plan)
+    def _follow(self) -> None:
+        """A rank other than 0: run rank 0's steps in its order, with
+        placeholder tickets, until the stop."""
+        while not self._stopped:
+            msg = self._channel.recv()
+            if msg[0] == "stop":
+                self._stopped = True
+            elif msg[0] == "plan":
+                with self._lock:
+                    self._plan_locked(self._tenant_locked(msg[1]))
             else:
-                self._run_lanes(batch, plan)
-        except Exception as e:  # noqa: BLE001 — the loop must survive
-            for p in batch.items:
-                if not p.ticket.done():
-                    p.ticket._reject(e)
+                _, name, kind, queries = msg
+                items = [_Pending(seq=0, query=q, deadline=None,
+                                  ticket=Ticket(RequestTrace(
+                                      name, type(q).__name__, 0.0)))
+                         for q in queries]
+                with self._lock:
+                    self._batches[kind] += 1
+                    self._occupancy_sum += (len(items) / self.lane_width
+                                            if kind == "lanes" else 1.0)
+                self._execute(_Batch(self._tenant_locked(name), kind, items))
+
+    def _execute(self, batch: _Batch) -> int:
+        with self._order:
+            self._send(("batch", batch.tenant.name, batch.kind,
+                        [_portable(p.query) for p in batch.items]))
+            try:
+                with self._lock:
+                    plan = self._plan_locked(batch.tenant)
+                if batch.kind == "update":
+                    self._run_updates(batch, plan)
+                elif batch.kind == "solo":
+                    self._run_solo(batch, plan)
+                else:
+                    self._run_lanes(batch, plan)
+            except Exception as e:  # noqa: BLE001 — the loop must survive
+                # on a group's other ranks only what rank 0 rejects the
+                # same way on every rank (a solve's ValueError) passes
+                if self._rank and not isinstance(e, ValueError):
+                    raise
+                for p in batch.items:
+                    if not p.ticket.done():
+                        p.ticket._reject(e)
+        if self._rank:
+            return len(batch.items)
         with self._lock:
             done = self._clock()
             for p in batch.items:
@@ -578,7 +718,14 @@ class Server:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "Server":
-        """Run the batch loop on a daemon thread (continuous serving)."""
+        """Run the batch loop on a daemon thread (continuous serving).
+        On a group's other ranks nothing starts: ``close()`` runs rank
+        0's steps."""
+        if self._rank:
+            return self
+        if self._stopped:
+            raise RuntimeError("this server's process group was sent its "
+                               "stop: it cannot serve again")
         if self._thread is None:
             self._closing = False
             self._thread = threading.Thread(
@@ -600,7 +747,11 @@ class Server:
     def close(self, drain: bool = True) -> None:
         """Stop serving. ``drain=True`` (default) answers everything
         still queued first; ``drain=False`` sheds it with a typed
-        ``"closed"`` rejection — accepted requests never just vanish."""
+        ``"closed"`` rejection — accepted requests never just vanish.
+        In a group, rank 0 then sends the stop, after the last batch it
+        executed; the other ranks run rank 0's steps until it arrives."""
+        if self._rank:
+            return self._follow()
         with self._work:
             if not drain:
                 for tenant in self._tenants.values():
@@ -615,6 +766,9 @@ class Server:
             self._thread = None
         elif drain:
             self.drain()
+        with self._order:
+            self._send(("stop",))
+            self._stopped = self._channel is not None
 
     def __enter__(self) -> "Server":
         return self.start()
@@ -629,7 +783,9 @@ class Server:
         completed / shed-by-reason / queued), batch counts and mean
         occupancy, tenancy state (resident plans, builds, evictions) and
         completed-request latency percentiles in milliseconds (over the
-        last {window} requests).""".format(window=_LATENCY_WINDOW)
+        last {window} requests). On a group's other ranks the batch and
+        tenancy counts are rank 0's; the request counts stay 0 (tickets
+        are rank 0's).""".format(window=_LATENCY_WINDOW)
         with self._lock:
             lat = sorted(self._latencies)
 

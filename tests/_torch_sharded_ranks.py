@@ -5,7 +5,8 @@
 Joins the group (``file://STORE``), loads the graphs and the update
 batch from ``INPUTS`` (an ``.npz`` the test wrote from the JAX
 package's generators), runs the port's sharded strategies, the
-distributed engine and the tuner on the CPU, and saves what it got to
+distributed engine on the meshes of ``launch.mesh.make_host_mesh`` (and
+that helper's errors) and the tuner on the CPU, and saves what it got to
 ``OUT`` (``torch.save`` of a dict of tensors, ints and strings) for the
 test to hold against the JAX package. Imports no JAX. Every collective
 times out after ``COLLECTIVE_TIMEOUT``, so a hang fails fast.
@@ -32,6 +33,11 @@ from repro_torch.core.distributed import (  # noqa: E402
     build_distributed_solver,
 )
 from repro_torch.graphs import coo_from_numpy, partition_edges  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_host_mesh,
+    make_production_mesh,
+    mesh_name,
+)
 from repro_torch.tune import (  # noqa: E402
     default_strategies,
     fingerprint,
@@ -46,6 +52,7 @@ PRED_MODES = ("none", "argmin", "packed")
 MULTI_SOURCES = (0, 7, 42, 100)
 DIST_SOURCES = (0, 3, 17, 29)
 MESHES = ((1, 4), (2, 2))
+BAD_MESHES = ((2, 4), (3, 1))        # 8 and 3 ranks in a group of 4
 COMBINES = ("allreduce", "reduce_scatter")
 LOCAL_STEPS = (1, 2)
 CAPPED = dict(delta=1_000, frontier_cap=2)     # overflows per shard
@@ -121,12 +128,29 @@ def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
         plan(sw, strategy="sharded_ell", delta=CAPPED["delta"]).solve(
             SingleSource(0)))
 
+    # the mesh helpers over this group
+    for shape in BAD_MESHES:
+        try:
+            make_host_mesh(*shape)
+            got[f"mesh_error/{shape}"] = "no error"
+        except ValueError as e:
+            got[f"mesh_error/{shape}"] = str(e)
+    for multi_pod in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi_pod)
+            got[f"production_error/{multi_pod}"] = "no error"
+        except ValueError as e:
+            got[f"production_error/{multi_pod}"] = str(e)
+
     # the distributed engine on the R-MAT graph (n a multiple of every
     # model width: the reference's engine needs that) and, with padded
-    # shards, on the small-world graph
-    from torch.distributed.device_mesh import init_device_mesh
+    # shards, on the small-world graph, on make_host_mesh's meshes
     for shape in MESHES:
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = make_host_mesh(*shape)
+        got[f"mesh/{shape[0]}x{shape[1]}"] = {
+            "name": mesh_name(mesh), "dims": ",".join(mesh.mesh_dim_names),
+            "device_type": mesh.device_type,
+            "ranks": mesh.mesh.to(torch.int64)}
         for name, steps in (("rmat", LOCAL_STEPS), ("smallworld", (1,))):
             g, dl = graphs[name]
             part = partition_edges(g, shape[1])

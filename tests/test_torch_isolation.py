@@ -6,10 +6,10 @@
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
 * The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (LM serving, sharded serving; the batched queries, the
-  frontier policies, dynamic updates, the landmark modes, tuning, the
-  deprecated solver shims, the SSSP serving tier and the sharded
-  strategies are ported); the launcher runs end to end on the CPU with
+  ROADMAP item (LM serving; the batched queries, the frontier policies,
+  dynamic updates, the landmark modes, tuning, the deprecated solver
+  shims, the SSSP serving tier, the sharded strategies and sharded
+  serving are ported); the launcher runs end to end on the CPU with
   --verify.
 """
 import ast
@@ -64,6 +64,11 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/api/engine.py",
                  "src/repro_torch/graphs/partition.py",
                  "src/repro_torch/core/distributed.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/registry.py",
+                 "src/repro_torch/configs/lm_archs.py",
+                 "src/repro_torch/configs/sssp_gamemap.py",
+                 "src/repro_torch/launch/mesh.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_multi_source_sssp.py",
                  "examples/torch_sssp_gamemap.py", "chip_smoke.py"):
@@ -93,11 +98,15 @@ def test_unported_parts_raise_with_roadmap_item():
     g = watts_strogatz(20, 4, 0.1, seed=0)
     cfg = DeltaConfig(delta=5)
     from repro_torch.launch.serve import main as serve_main
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6e"):
         serve_main(["--arch", "gemma2-9b"])
-    for flags in (["--strategy", "sharded_edge"], ["--shards", "2"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            serve_main(["--sssp", "--device", "cpu"] + flags)
+    # ported: sharded serving (one shard without a process group; more
+    # shards than ranks are refused as the sharded strategies refuse them)
+    small = ["--sssp", "--device", "cpu", "--nodes", "300", "--requests",
+             "2", "--batch", "2"]
+    serve_main(small + ["--strategy", "sharded_fused"])
+    with pytest.raises(ValueError, match="process group has 1 rank"):
+        serve_main(small + ["--strategy", "sharded_edge", "--shards", "2"])
     # ported: the sharded strategies (one shard without a process group)
     for strategy in ("sharded_edge", "sharded_ell", "sharded_fused"):
         res = Engine(g, DeltaConfig(delta=5, strategy=strategy),

@@ -5,8 +5,8 @@ sharded axis.
 
 One 4-rank gloo group runs the port (``tests/_torch_sharded_ranks.py``,
 one process per rank, one torch thread each, no JAX), once per test
-session: the first worker to need it spawns it under a file lock and
-the others read its results. Every rank must return the same answer,
+session (``_torch_fixtures.SpawnedGroup``: the first worker to need it
+spawns it under a file lock and the others read its results). Every rank must return the same answer,
 and that answer is held to the JAX package. Answers that do not depend
 on the shard count are held to the JAX package in-process (its
 single-device strategies, and its sharded strategies at
@@ -18,17 +18,13 @@ spawned process has a hard time limit, and each collective a 60 s
 timeout, so a hang fails the module within a minute.
 """
 import dataclasses
-import fcntl
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_fixtures import fresh_caches_one_thread
+from _torch_fixtures import SpawnedGroup, fresh_caches_one_thread, spawn
 from repro.api import Engine as JEngine
 from repro.api import MultiSource as JMultiSource
 from repro.api import SingleSource as JSingleSource
@@ -100,93 +96,36 @@ def _write_inputs(path: Path) -> None:
     np.savez(path, **arrays)
 
 
-class _Group:
-    """The 4 ranks and the 4-device JAX process, once per test session
-    across xdist workers: the first worker to take the lock starts them
-    (without waiting) and keeps the lock until they have written their
-    results into the session's directory; the others wait on the lock
-    and read. So the spawned processes run while this worker compiles
-    its JAX references."""
+def _start(root: Path):
+    """The 4 ranks and the 4-device JAX process, started without
+    waiting, so they run while this worker compiles its JAX
+    references."""
+    inputs = root / "inputs.npz"
+    _write_inputs(inputs)
+    return [spawn(HERE / "_torch_sharded_ranks.py", r, WORLD, root / "store",
+                  inputs, root / f"rank{r}.pt") for r in range(WORLD)] + [
+        spawn(HERE / "_jax_sharded_p4.py", inputs, root / "jax_p4.npz")]
 
-    def __init__(self, tmp_path_factory):
-        base = tmp_path_factory.getbasetemp()
-        if "PYTEST_XDIST_WORKER" in os.environ:     # the session's, not
-            base = base.parent                      # the worker's, dir
-        self.root = base / "torch_sharded_group"
-        self.root.mkdir(exist_ok=True)
-        self.lock = open(self.root / "lock", "w")
-        self.procs = None
-        try:
-            fcntl.flock(self.lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
-        except BlockingIOError:
-            return                      # another worker runs the group
-        if (self.root / "done").exists():
-            fcntl.flock(self.lock, fcntl.LOCK_UN)
-        else:
-            self.procs = self._start()
 
-    def _start(self):
-        inputs = self.root / "inputs.npz"
-        _write_inputs(inputs)
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(HERE.parent / "src"), str(HERE)]), OMP_NUM_THREADS="1")
-
-        def spawn(*args):
-            return subprocess.Popen([sys.executable, *map(str, args)],
-                                    env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-
-        procs = [spawn(HERE / "_torch_sharded_ranks.py", r, WORLD,
-                       self.root / "store", inputs,
-                       self.root / f"rank{r}.pt") for r in range(WORLD)]
-        return procs + [spawn(HERE / "_jax_sharded_p4.py", inputs,
-                              self.root / "jax_p4.npz")]
-
-    def _finish(self):
-        """Wait for this worker's processes (each under
-        ``RANK_LIMIT_S``), mark the results done, release the lock."""
-        procs, self.procs = self.procs, None
-        try:
-            for p in procs:
-                try:
-                    out, _ = p.communicate(timeout=RANK_LIMIT_S)
-                except subprocess.TimeoutExpired:
-                    for q in procs:
-                        q.kill()
-                    pytest.fail(f"a spawned process ran past {RANK_LIMIT_S}"
-                                f" s: {p.args}")
-                assert p.returncode == 0, f"{p.args} failed:\n{out[-4000:]}"
-            (self.root / "done").write_text("ok")
-        finally:
-            fcntl.flock(self.lock, fcntl.LOCK_UN)
-
-    def results(self):
-        if self.procs is not None:
-            self._finish()
-        else:
-            fcntl.flock(self.lock, fcntl.LOCK_EX)
-            fcntl.flock(self.lock, fcntl.LOCK_UN)
-        assert (self.root / "done").exists(), "the group did not finish"
-        got = [torch.load(self.root / f"rank{r}.pt", weights_only=True)
-               for r in range(WORLD)]
-        return got, dict(np.load(self.root / "jax_p4.npz"))
-
-    def close(self):
-        if self.procs is not None:
-            self._finish()
-        self.lock.close()
+def group_results(grp: SpawnedGroup):
+    """Every rank's results and the 4-device JAX process's."""
+    root = grp.wait()
+    got = [torch.load(root / f"rank{r}.pt", weights_only=True)
+           for r in range(WORLD)]
+    return got, dict(np.load(root / "jax_p4.npz"))
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _group_started(tmp_path_factory):
-    grp = _Group(tmp_path_factory)
+    grp = SpawnedGroup(tmp_path_factory, "torch_sharded_group", _start,
+                       RANK_LIMIT_S)
     yield grp
     grp.close()
 
 
 @pytest.fixture(scope="module")
 def group(_group_started):
-    return _group_started.results()
+    return group_results(_group_started)
 
 
 def _same(a, b, tag):
