@@ -85,7 +85,7 @@
    at each path's shapes (``bucket_scan`` runs on the small-world and
    the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
    kernels line sums every path's counted runs (phases 3, 5, 8, 9, 11,
-   12, 13, 14);
+   12, 13, 14; phase 15 launches none);
    ``by_path`` gives each path's launches and numbers, and the entry's
    ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
    weighted by those launches, so they move when a path is added.
@@ -278,6 +278,42 @@
    ``torchrun`` with one NCCL rank, ``--strategy sharded_fused
    --shards 1`` at ``--nodes 1000000 --degree 20``, exits 0 after
    answering its requests. (b) and (c) run beside (a).
+15. LM decode serving (run last; the counters set to 0 just before it
+   and read just after: it launches none of the four kernels, as the
+   reference's LM path reaches no Pallas kernel). (a) gemma2-9b at full
+   width and depth (42 layers, 9.24 B parameters, bf16), initialised on
+   the card from a seeded ``torch.Generator``: a prefill of
+   ``LM_PROMPT`` = 4608 tokens (nine 512-token query chunks, past the
+   4096 window of the local layers), then ``LM_STEPS`` teacher-forced
+   decode steps; the prefill's last logits and each step's against
+   ``apply_lm`` over the whole sequence at the same position, within
+   ``LM_BF16_MAX_ABS`` (max abs) and ``LM_BF16_REL`` (relative L2).
+   Then the serving launcher's run: ``BatchServer`` with 4 slots and a
+   64-token cache, 8 requests of 8 seeded tokens, 16 new tokens each,
+   all completed with ids in range; the first 4 (admitted together,
+   equal lengths) equal to their slots' steps done by hand (each prompt
+   prefilled alone, then 4-slot decode steps at the server's shared
+   length, one past the prefill's: the reference leaves a cache slot
+   empty there), each up to its first top-2 margin under ``LM_MARGIN``,
+   and their first tokens equal to ``generate``'s; then, the model
+   freed, ``python -m repro_torch.launch.serve --arch gemma2-9b`` in a
+   process of its own exits 0. (b) moonshot-v1-16b-a3b at full width
+   (64 experts, top-6, ``d_ff_expert`` 1408, vocab 163 840), 4 of its 48
+   layers, and (c) granite-20b at full width (MQA, GELU MLP, untied
+   unembedding), 4 of its 52 layers: the same check on a 512-token
+   prompt; for the MoE, the positions whose expert picks and capacity
+   drops are the same in both runs (a whole-sequence forward gives
+   every expert a capacity for 520 tokens, a decode step for 1), and a
+   4-slot decode step, where the capacity is 1 an expert, that must
+   drop a pick, each slot that kept every pick within the tolerance of
+   its one-slot step. (d) The five smoke configs: the card's prefill
+   and decode logits against the CPU's on the same seeded weights
+   within ``LM_F32_TOL`` (atol = rtol, float32). ``[lm]`` lines give
+   each part's time, prefill ms, ms per decode step and tokens/s at 1
+   and 4 slots, weight, cache and peak memory
+   (``torch.cuda.max_memory_allocated``), the bounds (weights read at
+   3.35 TB/s; 2 * parameters * tokens FLOP at 989 TFLOP/s) and the
+   card's name and power limit.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -361,6 +397,21 @@ SHARD_RANKS, SHARD_SOURCES, SHARD_LIMIT_S = 2, (0, 131_071), 400
 # timeout and the idle pause of the gloo ranks' server
 SSERVE_LANES, SSERVE_SEED, SSERVE_REQUESTS, SSERVE_TARGET = 2, 35, 8, 777_777
 SSERVE_TIMEOUT_S, SSERVE_PAUSE_S = 1.0, 3.0
+# phase 15: gemma2-9b at full width and depth, its prompt (nine 512-token
+# query chunks, past the 4096 window) and teacher-forced decode steps;
+# the configs cut to a few layers and their prompt; the serving
+# launcher's defaults (slots, cache, requests, prompt, new tokens); the
+# tolerances (PERF.md, PR 22): bf16 logits against the whole-sequence
+# forward, the top-2 margin below which greedy picks are not compared,
+# float32 logits of the card against the CPU's
+LM_FULL, LM_PROMPT, LM_STEPS = "gemma2-9b", 4608, 8
+LM_CUT, LM_CUT_LAYERS, LM_CUT_PROMPT = (("moonshot-v1-16b-a3b",
+                                         "granite-20b"), 4, 512)
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT_LEN, LM_NEW = 4, 64, 8, 8, 16
+LM_BF16_MAX_ABS, LM_BF16_REL, LM_MARGIN, LM_F32_TOL = 0.5, 0.05, 0.0625, 1e-4
+LM_LIMIT_S = 600
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
 
 
 def check(cond, what: str) -> None:
@@ -2746,6 +2797,471 @@ def sharded_serving_path(torch, np, cuda, g, results, keyed, counters):
     return launches
 
 
+# -- phase 15: LM decode serving -------------------------------------------
+
+def route_log(moe_lib, routes: list):
+    """``moe_lib.moe_apply`` and a wrapper of it that appends, per call,
+    each token's expert picks and whether each pick fit in its expert's
+    capacity (``(ids, kept)``, both (T, k), on the host) to ``routes``."""
+    real = moe_lib.moe_apply
+
+    def wrapped(p, cfg, x):
+        k = cfg.moe.top_k
+        _, _, ids, _, _, _, cap, slot = moe_lib.route(
+            p, cfg, x.reshape(-1, x.shape[-1]))
+        routes.append((ids.view(-1, k).cpu(), (slot < cap).view(-1, k).cpu()))
+        return real(p, cfg, x)
+    return real, wrapped
+
+
+def logit_err(out, ref) -> tuple:
+    """(max |out - ref|, ||out - ref|| / ||ref||) of two logit rows, in
+    float32."""
+    d = out.float() - ref.float()
+    return float(d.abs().max()), float(d.norm() / ref.float().norm())
+
+
+def within_bf16(err) -> bool:
+    return err[0] <= LM_BF16_MAX_ABS and err[1] <= LM_BF16_REL
+
+
+def lm_consistency(torch, tf, cfg, model, toks, n_prompt, cuda,
+                   routes=None, profile=False):
+    """Prefill ``toks[:, :n_prompt]``, then one teacher-forced decode step
+    per further token; the prefill's last logits and each step's against
+    ``apply_lm``'s over the whole sequence at the same position. Returns
+    a dict: the prefill's ms, each step's ms, the whole forward's ms,
+    ``(max_abs, rel_l2)`` per position, and where ``routes`` (filled by
+    ``route_log``'s wrapper) is given, per position whether its expert
+    picks and drops are the same in both runs in every layer
+    (``same``), how many prompt tokens' are not and the share of the
+    decode tokens' picks that the whole forward dropped; with
+    ``profile``, ``torch.profiler``'s view of one more decode step."""
+    sync = torch.cuda.synchronize
+    n_layers, total = cfg.n_layers, toks.shape[1]
+    out = {}
+    cache = tf.init_cache(cfg, 1, total + 1, device=cuda)
+    if routes is not None:
+        routes.clear()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(model, cfg, toks[:, :n_prompt], cache)
+    sync()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    rows, out["steps_ms"] = [logits[0, -1]], []
+    for j in range(n_prompt, total):
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(model, cfg, cache, toks[:, j:j + 1])
+        sync()
+        out["steps_ms"].append((time.perf_counter() - t0) * 1e3)
+        rows.append(logits[0, -1])
+    path = list(routes or ())
+    if profile:         # the next position, written to the spare slot
+        kern, wall, _, counts = profiled(torch, lambda: tf.decode_step(
+            model, cfg, cache, toks[:, -1:]))
+        busy = sum(kern.values())
+        out["profile"] = (wall, busy, sum(counts.values()), sorted(
+            kern.items(), key=lambda kv: -kv[1])[:5])
+    del cache
+    if routes is not None:
+        routes.clear()
+    t0 = time.perf_counter()
+    full, _ = tf.apply_lm(model, cfg, toks)
+    sync()
+    out["full_ms"] = (time.perf_counter() - t0) * 1e3
+    out["errs"] = [logit_err(r, full[0, n_prompt - 1 + i])
+                   for i, r in enumerate(rows)]
+    del full
+    if routes is not None:
+        whole = list(routes)
+        check(len(whole) == n_layers
+              and len(path) == n_layers * (1 + total - n_prompt),
+              "MoE calls: one a layer a forward")
+
+        def picks(entries, row):
+            return [(ids[row], kept[row]) for ids, kept in entries]
+
+        def equal(a, b):
+            return all(torch.equal(x, y) and torch.equal(u, v)
+                       for (x, u), (y, v) in zip(a, b))
+
+        out["same"] = [
+            equal(picks(whole, n_prompt - 1 + i),
+                  picks(path[:n_layers], n_prompt - 1) if i == 0 else
+                  picks(path[n_layers * i:n_layers * (i + 1)], 0))
+            for i in range(len(rows))]
+        out["prompt_diff"] = sum(
+            not equal(picks(whole, r), picks(path[:n_layers], r))
+            for r in range(n_prompt))
+        out["decode_dropped"] = float(torch.stack(
+            [~kept[n_prompt:] for _, kept in whole]).float().mean())
+    return out
+
+
+def moe_slots_check(torch, tf, cfg, model, toks, n_prompt, cuda, routes,
+                    gen):
+    """One decode step of ``LM_SLOTS`` slots that hold the same prompt's
+    cache, each with its own next token: a step's capacity is
+    ``max(1, int(slots * k / E * capacity_factor))`` = 1 an expert, so a
+    pick that two slots share is dropped for the later slot. Each slot's
+    logits against a one-slot step of its token (where nothing drops):
+    within the bf16 tolerance where none of the slot's picks dropped in
+    any layer. Returns the dropped picks and each slot's error."""
+    one = tf.init_cache(cfg, 1, n_prompt + 1, device=cuda)
+    _, one = tf.prefill(model, cfg, toks[:, :n_prompt], one)
+    nxt = torch.randint(0, cfg.vocab, (LM_SLOTS, 1), generator=gen,
+                        device=cuda)
+    slots = {"k": one["k"].repeat(1, LM_SLOTS, 1, 1, 1),
+             "v": one["v"].repeat(1, LM_SLOTS, 1, 1, 1), "len": n_prompt}
+    routes.clear()
+    out, _ = tf.decode_step(model, cfg, slots, nxt)
+    kept = torch.stack([k for _, k in routes])          # (L, slots, k)
+    dropped = int((~kept).sum())
+    errs = []
+    for r in range(LM_SLOTS):
+        alone = {"k": one["k"].clone(), "v": one["v"].clone(),
+                 "len": n_prompt}
+        ref, _ = tf.decode_step(model, cfg, alone, nxt[r:r + 1])
+        errs.append(logit_err(out[r, -1], ref[0, -1]))
+    clean = kept.all(-1).all(0).tolist()
+    check(dropped > 0, f"{cfg.name}: no pick dropped in a {LM_SLOTS}-slot "
+          "decode step")
+    for r, (ok, err) in enumerate(zip(clean, errs)):
+        check(not ok or within_bf16(err),
+              f"{cfg.name}: slot {r} kept every pick but its logits differ "
+              f"from a one-slot step by {err}")
+    return dropped, clean, errs
+
+
+def held_to(cfg, res) -> None:
+    """Every position of an ``lm_consistency`` result within the bf16
+    tolerance; for an MoE, every position routed alike in both runs, and
+    at least one."""
+    same = res.get("same") or [True] * len(res["errs"])
+    check(any(same), f"{cfg.name}: no position routed alike in both runs")
+    for i, (ok, err) in enumerate(zip(same, res["errs"])):
+        check(not ok or within_bf16(err),
+              f"{cfg.name}: the {i}-th compared position's logits {err} "
+              "against the whole-sequence forward, past "
+              f"({LM_BF16_MAX_ABS}, {LM_BF16_REL})")
+
+
+def lm_serving_path(torch, np, cuda, counters, smi) -> None:
+    """Phase 15: the LM decode serving path on the card (module note)."""
+    import copy
+    import dataclasses
+    import gc
+    import os
+
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import BatchServer, Request, generate
+
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=cuda)
+    # memory is reported above what the earlier phases still hold
+    base = torch.cuda.memory_allocated()
+
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+
+    def fmt_errs(errs):
+        return ", ".join(f"{a:.4f}/{r:.5f}" for a, r in errs)
+
+    def ms_line(ms):
+        return (f"median {statistics.median(ms):.2f} ms "
+                f"({min(ms):.2f}-{max(ms):.2f})")
+
+    # -- (a) gemma2-9b at full width and depth ------------------------------
+    t_part = time.perf_counter()
+    cfg = configs.get_config(LM_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, gen.manual_seed(0), device=cuda)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # the config's count leaves out gemma2's two post-block norms a layer
+    post_norms = 2 * cfg.d_model * cfg.n_layers
+    check(n_params == cfg.n_params() + post_norms,
+          f"{cfg.name}: {n_params} parameters, not the config's "
+          f"{cfg.n_params()} and {post_norms} of post-block norms")
+    wbytes = nbytes(model)
+    total = LM_PROMPT + LM_STEPS
+    cbytes = 2 * cfg.n_layers * total * cfg.n_kv_heads * cfg.head_dim_ * 2
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{n_params} parameters, weights {wbytes / 1e9:.3f} GB (bf16), "
+        f"initialised on the card from torch.Generator seed 0 in "
+        f"{init_s:.1f} s; memory after init (above the phase's start) "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
+    toks = torch.randint(0, cfg.vocab, (1, total),
+                         generator=gen.manual_seed(1), device=cuda)
+    # warm-up (first launches, cuBLAS handles): a 512-token prefill and
+    # one decode step
+    warm = tf.init_cache(cfg, 1, 513, device=cuda)
+    _, warm = tf.prefill(model, cfg, toks[:, :512], warm)
+    tf.decode_step(model, cfg, warm, toks[:, 512:513])
+    del warm
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    res = lm_consistency(torch, tf, cfg, model, toks, LM_PROMPT, cuda,
+                         profile=True)
+    pf_ms, st_ms, full_ms, errs = (res["prefill_ms"], res["steps_ms"],
+                                   res["full_ms"], res["errs"])
+    peak = torch.cuda.max_memory_allocated() - base
+    held_to(cfg, res)
+    flops = 2 * n_params * LM_PROMPT
+    attn_flops = 4 * cfg.n_layers * LM_PROMPT * total * cfg.n_heads \
+        * cfg.head_dim_
+    log(f"[lm] {cfg.name}: prefill of {LM_PROMPT} tokens "
+        f"({LM_PROMPT // cfg.attention_chunk} query chunks of "
+        f"{cfg.attention_chunk}; local layers' window {cfg.window}) "
+        f"{pf_ms:.1f} ms, bound {flops / BF16_FLOPS_PER_S * 1e3:.1f} ms "
+        f"(2 * {n_params} * {LM_PROMPT} FLOP at 989 TFLOP/s bf16; the f32 "
+        f"attention's {attn_flops / 1e12:.2f} TFLOP at 67 TFLOP/s: "
+        f"{attn_flops / 67e12 * 1e3:.1f} ms more); {LM_STEPS} "
+        f"teacher-forced decode steps {ms_line(st_ms)}, "
+        f"{1e3 / statistics.median(st_ms):.1f} tokens/s at 1 slot, bound "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.2f} ms (weights at 3.35 TB/s; "
+        f"{(wbytes + cbytes) / HBM_BYTES_PER_S * 1e3:.2f} ms with the "
+        f"{cbytes / 1e9:.3f} GB cache of {total}); whole-sequence forward "
+        f"{full_ms:.1f} ms; peak memory {peak / 1e9:.3f} GB; {smi}")
+    log(f"[lm] {cfg.name}: logits (max abs/rel L2) against apply_lm over "
+        f"the {total} tokens at positions {LM_PROMPT - 1}..{total - 1}: "
+        f"{fmt_errs(errs)} (tolerance {LM_BF16_MAX_ABS}/{LM_BF16_REL})")
+    wall, busy, n_kern, top = res["profile"]
+    log(f"[profile] {cfg.name} decode step at position {total} "
+        f"(torch.profiler): {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+        f"share {1 - busy / wall:.3f}), {n_kern} kernel records; top: "
+        + "; ".join(f"{ms:.3f} ms {name[:60]}" for name, ms in top))
+
+    # the serving launcher's run: BatchServer with its defaults
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT_LEN, dtype=np.int32)
+               for _ in range(LM_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchServer(model, cfg, n_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      eos_id=-1)
+    for i, p in enumerate(prompts):
+        srv.submit(Request(rid=i, prompt=p, max_new=LM_NEW))
+    n_steps = 0
+    t0 = time.perf_counter()
+    done = []
+    while srv.queue or any(s is not None for s in srv.slots):
+        done += srv.step()
+        n_steps += 1
+    sync()
+    serve_s = time.perf_counter() - t0
+    served = {r.rid: list(r.generated) for r in done}
+    check(sorted(served) == list(range(LM_REQUESTS)) and all(
+        r.done and len(r.generated) == LM_NEW
+        and all(0 <= t < cfg.vocab for t in r.generated) for r in done),
+        "BatchServer: a request did not complete with in-range ids")
+    log(f"[lm] {cfg.name}: BatchServer({LM_SLOTS} slots, cache "
+        f"{LM_MAX_LEN}): {LM_REQUESTS} requests of {LM_PROMPT_LEN} tokens, "
+        f"{LM_NEW} new each, {n_steps} steps in {serve_s * 1e3:.1f} ms "
+        f"({LM_REQUESTS * LM_NEW / serve_s:.1f} tokens/s at {LM_SLOTS} "
+        f"slots, prefills included); peak memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB; {smi}")
+    # the first LM_SLOTS requests are admitted together with equal
+    # lengths: each prompt prefilled alone into its slot, then decode
+    # steps of every slot at the server's shared length, the prompt plus
+    # the tokens picked (one past the cache's contents after a prefill:
+    # the reference's BatchServer leaves position LM_PROMPT_LEN empty)
+    cache = tf.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=cuda)
+    firsts = []
+    for i in range(LM_SLOTS):
+        one = tf.init_cache(cfg, 1, LM_MAX_LEN, device=cuda)
+        lg, one = tf.prefill(model, cfg, torch.as_tensor(
+            prompts[i][None], device=cuda), one)
+        for kk in ("k", "v"):
+            cache[kk][:, i:i + 1] = one[kk]
+        firsts.append(lg[0, -1])
+    del one
+    cache["len"] = LM_PROMPT_LEN + 1
+    lg, picks, margins, loop_ms = torch.stack(firsts), [], [], []
+    for step in range(LM_NEW):
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu())
+        picks.append(torch.argmax(lg, dim=-1))
+        if step + 1 < LM_NEW:
+            t0 = time.perf_counter()
+            out, cache = tf.decode_step(model, cfg, cache, picks[-1][:, None])
+            sync()
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            lg = out[:, -1]
+    del cache
+    picks = torch.stack(picks, 1).cpu().numpy()
+    margins = torch.stack(margins, 1).numpy()
+    t0 = time.perf_counter()
+    alone = generate(model, cfg, np.stack(prompts[:LM_SLOTS]),
+                     LM_NEW).cpu().numpy()
+    sync()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    compared, agree = [], []
+    for i in range(LM_SLOTS):
+        low = np.nonzero(margins[i] < LM_MARGIN)[0]
+        n = int(low[0]) if low.size else LM_NEW
+        check(served[i][:n] == picks[i, :n].tolist(),
+              f"BatchServer request {i}: {served[i]} differs from its "
+              f"slot's steps {picks[i].tolist()} before step {n}")
+        check(margins[i, 0] < LM_MARGIN or served[i][0] == alone[i, 0],
+              f"BatchServer request {i}: its prefill's pick differs from "
+              "generate's")
+        compared.append(n)
+        agree.append(int(np.argmin(np.append(
+            np.asarray(served[i]) == alone[i], False))))
+    whole = [served[i] == picks[i].tolist() for i in range(LM_SLOTS)]
+    log(f"[lm] {cfg.name}: the first {LM_SLOTS} served requests == their "
+        f"slots' steps (one prefill each, then {LM_SLOTS}-slot decode steps "
+        f"at the shared length) over {compared} of {LM_NEW} tokens (each up "
+        f"to its first top-2 margin under {LM_MARGIN}; margins at step 0 "
+        f"{np.round(margins[:, 0], 4).tolist()}; all {LM_NEW} equal: "
+        f"{whole}); {LM_SLOTS}-slot decode "
+        f"steps {ms_line(loop_ms)}, "
+        f"{LM_SLOTS * 1e3 / statistics.median(loop_ms):.1f} tokens/s at "
+        f"{LM_SLOTS} slots; generate on the same prompts ({gen_ms:.1f} ms) "
+        f"agrees with the served tokens over the first {agree} tokens (the "
+        f"server's empty cache slot at position {LM_PROMPT_LEN})")
+    del model, srv, lg, out, firsts
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] part (a) took {time.perf_counter() - t_part:.1f} s")
+
+    # the launcher, in a process of its own
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_FULL],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=LM_LIMIT_S)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[serve]")]
+    check(res.returncode == 0 and any(ln.startswith(
+        f"[serve] completed {LM_REQUESTS} requests, "
+        f"{LM_REQUESTS * LM_NEW} tokens") for ln in lines),
+        f"the serving launcher --arch {LM_FULL} failed:\n"
+        f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    log(f"[lm] launcher --arch {LM_FULL}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s: " + " | ".join(lines))
+
+    # -- (b, c) the MoE and the MQA/GELU/untied configs, full width ---------
+    for arch in LM_CUT:
+        t_part = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=LM_CUT_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.init_lm(cfg, gen.manual_seed(0), device=cuda)
+        wbytes = nbytes(model)
+        total = LM_CUT_PROMPT + LM_STEPS
+        toks = torch.randint(0, cfg.vocab, (1, total),
+                             generator=gen.manual_seed(1), device=cuda)
+        routes = [] if cfg.moe is not None else None
+        if routes is not None:
+            real, moe_lib.moe_apply = route_log(moe_lib, routes)
+        try:
+            n_warm = LM_CUT_PROMPT // 8             # warm-up: a short prompt
+            warm = tf.init_cache(cfg, 1, n_warm + 1, device=cuda)
+            _, warm = tf.prefill(model, cfg, toks[:, :n_warm], warm)
+            tf.decode_step(model, cfg, warm, toks[:, n_warm:n_warm + 1])
+            del warm
+            res = lm_consistency(torch, tf, cfg, model, toks, LM_CUT_PROMPT,
+                                 cuda, routes)
+            pf_ms, st_ms, full_ms, errs = (res["prefill_ms"],
+                                           res["steps_ms"], res["full_ms"],
+                                           res["errs"])
+            held_to(cfg, res)
+            what = ""
+            if routes is not None:
+                m = cfg.moe
+                cap = max(1, int(total * m.top_k / m.n_experts
+                                 * m.capacity_factor))
+                dropped, clean, slot_errs = moe_slots_check(
+                    torch, tf, cfg, model, toks, LM_CUT_PROMPT, cuda, routes,
+                    gen.manual_seed(2))
+                # with a capacity factor of E / k no pick is ever dropped,
+                # so the whole forward routes every token as a step does
+                open_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    m, capacity_factor=m.n_experts / m.top_k))
+                opened = lm_consistency(torch, tf, open_cfg, model, toks,
+                                        LM_CUT_PROMPT, cuda, routes)
+                held_to(open_cfg, opened)
+                check(opened["decode_dropped"] == 0, "capacity E / k dropped")
+                what = (f"; routed alike in both runs at {sum(res['same'])} "
+                        f"of {len(errs)} positions {res['same']} (the whole "
+                        f"forward gives an expert a capacity of {cap} for "
+                        f"{total} tokens and dropped "
+                        f"{res['decode_dropped']:.3f} of the decode tokens' "
+                        f"picks, a decode step drops none; "
+                        f"{res['prompt_diff']} prompt tokens routed "
+                        f"otherwise in the prefill); a {LM_SLOTS}-slot "
+                        f"decode step dropped {dropped} picks, slots with "
+                        f"every pick kept {clean}, logits against one-slot "
+                        f"steps {fmt_errs(slot_errs)}; at capacity factor "
+                        f"E/k = {m.n_experts / m.top_k:.3f} (nothing "
+                        f"dropped) routed alike at {sum(opened['same'])} of "
+                        f"{len(errs)}, logits {fmt_errs(opened['errs'])}")
+        finally:
+            if routes is not None:
+                moe_lib.moe_apply = real
+        log(f"[lm] {cfg.name} ({cfg.n_layers} of "
+            f"{configs.get_config(arch).n_layers} layers, full width: "
+            f"d={cfg.d_model}, kv heads {cfg.n_kv_heads}, mlp {cfg.mlp}, "
+            f"vocab {cfg.vocab}"
+            + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+               f"d_ff {cfg.moe.d_ff_expert}" if cfg.moe else "")
+            + f"; weights {wbytes / 1e9:.3f} GB): prefill of "
+            f"{LM_CUT_PROMPT} tokens {pf_ms:.1f} ms, {LM_STEPS} decode steps "
+            f"{ms_line(st_ms)}, whole-sequence forward {full_ms:.1f} ms; "
+            f"logits (max abs/rel L2) {fmt_errs(errs)}{what}; peak memory "
+            f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB; "
+            f"{smi}")
+        del model, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[lm] part {cfg.name} took {time.perf_counter() - t_part:.1f} s")
+
+    # -- (d) the smoke configs: the card against the CPU, float32 ----------
+    t_part = time.perf_counter()
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        if configs.family_of(arch) != "lm":
+            continue
+        cfg = configs.get_config(arch, smoke=True)
+        on_cpu = tf.init_lm(cfg, torch.Generator().manual_seed(2),
+                            device="cpu")
+        models = {"cpu": on_cpu, "cuda": copy.deepcopy(on_cpu).to(cuda)}
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 19))
+        outs = {}
+        for where, m in models.items():
+            dev = next(m.parameters()).device
+            t = torch.as_tensor(toks, device=dev)
+            cache = tf.init_cache(cfg, 2, 32, device=dev)
+            lg, cache = tf.prefill(m, cfg, t[:, :16], cache)
+            seq = [lg[:, -1]]
+            for j in range(16, 19):
+                lg, cache = tf.decode_step(m, cfg, cache, t[:, j:j + 1])
+                seq.append(lg[:, -1])
+            outs[where] = torch.stack(seq).cpu()
+        err = (outs["cuda"] - outs["cpu"]).abs()
+        check(bool((err <= LM_F32_TOL * (1 + outs["cpu"].abs())).all()),
+              f"{cfg.name}: card and CPU logits differ by {float(err.max())}")
+        worst[cfg.name] = float(err.max())
+    log(f"[lm] smoke configs, prefill of 16 tokens and 3 decode steps, the "
+        f"card's float32 logits against the CPU's (atol = rtol = "
+        f"{LM_F32_TOL}): max abs {json.dumps(worst)} "
+        f"({time.perf_counter() - t_part:.1f} s)")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the LM path launched an SSSP kernel: {launches}")
+    log(f"[lm] launches over phase 15: {json.dumps(launches)} (the LM path "
+        "reaches no Pallas kernel in the reference and none here)")
+    log(f"[lm] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3162,6 +3678,9 @@ def main() -> int:
         sharded={"frontier_relax": shard_record},
         sharded_serve={"frontier_relax": main_case["frontier_relax"]})
     launches = {k: sum(p[k] for p in by_path.values()) for k in counters}
+
+    # -- 15. LM decode serving (launches no SSSP kernel) --------------------
+    lm_serving_path(torch, np, cuda, counters, smi)
 
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)

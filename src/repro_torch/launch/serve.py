@@ -1,5 +1,11 @@
-"""Serving launcher of the PyTorch port: batched SSSP queries over the
+"""Serving launcher of the PyTorch port: LM decode over the slot server
+(``repro_torch.serve.BatchServer``) and batched SSSP queries over the
 async serving tier (``repro_torch.serve.Server``, DESIGN.md §13).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+      --smoke --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --sssp --nodes 20000 \\
       --requests 32 --batch 8
@@ -10,24 +16,31 @@ async serving tier (``repro_torch.serve.Server``, DESIGN.md §13).
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --sssp --device cpu --nodes 3000 --strategy sharded_edge --shards 2
 
-Flag names follow ``repro.launch.serve``. The server runs on CUDA unless
-``--device cpu`` is given (then the kernels' plain twins run). The
-graph is ``watts_strogatz(--nodes, --degree, 1e-2, seed=0)``; one
-``SingleSource(0)`` is served first (kernel build and warm-up), then
-``--requests`` requests, alternating ``SingleSource`` and
-``PointToPoint`` from seeded sources, go through the background batch
-loop in lane batches of ``--batch``. ``--tune`` tunes the tenant's
-operating point by measured search at graph load; ``--tune-cache PATH``
-persists and reuses the record (alone: a cache hit or the
-zero-measurement estimator).
+Flag names and defaults follow ``repro.launch.serve``. Everything runs
+on CUDA unless ``--device cpu`` is given (then the kernels' plain twins
+run); without a CUDA device and without ``--device`` the launcher raises.
+
+LM decode (``--arch``, an LM architecture of ``repro_torch.configs``;
+``--smoke`` for its reduced config): random weights from seed 0 on the
+device, ``--requests`` requests of ``--prompt-len`` seeded tokens and
+``--max-new`` new tokens each through a ``BatchServer`` of ``--slots``
+slots and a ``--max-len`` cache (no end-of-sequence id).
+
+SSSP (``--sssp``): the graph is ``watts_strogatz(--nodes, --degree,
+1e-2, seed=0)``; one ``SingleSource(0)`` is served first (kernel build
+and warm-up), then ``--requests`` requests, alternating
+``SingleSource`` and ``PointToPoint`` from seeded sources, go through
+the background batch loop in lane batches of ``--batch``. ``--tune``
+tunes the tenant's operating point by measured search at graph load;
+``--tune-cache PATH`` persists and reuses the record (alone: a cache
+hit or the zero-measurement estimator).
 
 Under ``torchrun`` the launcher starts the process group as
 ``launch.sssp`` does (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
 cpu``); ``--strategy sharded_edge|sharded_ell|sharded_fused`` then
 shards the tenant's relaxation over the group's ranks (``--shards``:
 the group's size, the default, or 1). Rank 0 submits the request
-stream and prints; the other ranks run its batch plan. LM decode
-(``--arch``) is not ported (ROADMAP Queue 1 item 6e).
+stream and prints; the other ranks run its batch plan.
 """
 from __future__ import annotations
 
@@ -106,14 +119,53 @@ def _serve_sssp(args, device):
           f"batches={stats['batches']} shed={stats['shed'] or 0}")
 
 
+def _serve_lm(args, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import family_of, get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import BatchServer, Request
+
+    if family_of(args.arch) != "lm":
+        raise ValueError(f"LM serving needs an lm arch, not {args.arch!r}")
+    dev = resolve_device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    srv = BatchServer(params, cfg, n_slots=args.slots, max_len=args.max_len,
+                      eos_id=-1)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        srv.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab, args.prompt_len,
+                                dtype=np.int32),
+            max_new=args.max_new))
+    done = srv.run_to_completion()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in done)
+    print(f"[serve] completed {len(done)} requests, {tokens} tokens in "
+          f"{dt:.2f}s on {name} ({tokens / dt:.1f} tok/s with {args.slots} "
+          f"slots, {cfg.name})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None,
-                    help="LM decode serving: not ported (ROADMAP Queue 1 "
-                         "item 6e)")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--sssp", action="store_true",
-                    help="serve batched SSSP queries")
+                    help="serve batched SSSP queries instead of LM decode")
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--degree", type=int, default=12)
     ap.add_argument("--delta", type=int, default=10)
@@ -141,12 +193,11 @@ def main(argv=None):
                     help="persistent tuning cache")
     args = ap.parse_args(argv)
 
-    if args.arch is not None:
-        raise NotImplementedError(
-            "LM decode serving (--arch) is not ported to repro_torch yet "
-            "(ROADMAP Queue 1 item 6e)")
     if not args.sssp:
-        ap.error("--sssp is required (LM serving is not ported)")
+        if not args.arch:
+            ap.error("--arch is required for LM serving")
+        _serve_lm(args, args.device)
+        return
 
     import torch.distributed as dist
 

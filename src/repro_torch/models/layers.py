@@ -1,0 +1,232 @@
+"""Transformer building blocks of the PyTorch port (counterpart of
+``repro.models.layers``): RMSNorm, RoPE, GQA attention (sliding window,
+logit softcap, chunked query blocks), gated MLPs.
+
+Parameters live in ``nn.Module``s whose attribute names are the
+reference's parameter-tree keys (``wq``, ``w_gate``, ...); every layer is
+a plain function ``f(params, x, ...) -> y`` over them, as in the
+reference. Products and attention are plain ``torch`` matmuls and
+einsums with the reference's precision choices (scores and softmax in
+float32). Sharding comes with the mesh slice of the port; nothing here
+constrains a layout.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# ----------------------------------------------------------------- init utils
+
+
+def _dense_init(shape, dtype, generator: torch.Generator, device,
+                scale: Optional[float] = None) -> nn.Parameter:
+    """Normal(0, 1) times ``scale`` (default ``1/sqrt(shape[0])``: for
+    expert weights ``(E, d, f)`` that is ``1/sqrt(E)``, as in the
+    reference), drawn in float32 from ``generator`` and cast to
+    ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return nn.Parameter((x * scale).to(dtype))
+
+
+# --------------------------------------------------------------------- norms
+
+def rms_norm(g, x, eps: float = 1e-6):
+    """RMSNorm in float32, scaled by ``1 + g``, cast back to ``x``'s
+    dtype."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + g.float())).to(x.dtype)
+
+
+def init_rms_norm(d: int, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros((d,), dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------- RoPE
+
+def rope(x, positions, theta: float = 10000.0):
+    """Half-split rotary embedding. x: (..., S, H, Dh); positions:
+    broadcastable to (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half)
+    ang = positions[..., :, None, None].float() * freq       # (...,S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+def _softcap(x, cap: Optional[float]):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _mask(qpos, t: int, device, *, causal: bool, window, kv_len):
+    """(..., T) bool: causal order, the window and ``kv_len``."""
+    kpos = torch.arange(t, device=device)
+    mask = torch.ones(qpos.shape[:-1] + (t,), dtype=torch.bool,
+                      device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    if kv_len is not None:
+        mask &= kpos < kv_len
+    return mask
+
+
+def gqa_attention(q, k, v, *, q_offset: int, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  kv_len: Optional[int] = None,
+                  chunk: Optional[int] = None):
+    """Grouped-query attention.
+
+    q: (B, S, H, Dh); k, v: (B, T, Hk, Dh) with H % Hk == 0.
+    q_offset: absolute position of q[0] (decode uses the cache length).
+    kv_len: valid KV length (entries beyond it are masked; decode with a
+    preallocated cache). chunk: query-block size (used only when
+    ``chunk < S`` and ``S % chunk == 0``). Scores are float32, the
+    softcap comes before the mask, masked entries are ``-1e30``.
+    """
+    b, s, h, dh = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = dh ** -0.5
+    kf, vf = k.float(), v.float()
+    if g > 1 and s == 1:
+        # decode: a grouped einsum, K/V never repeated
+        qg = q.reshape(b, 1, hk, g, dh).float()
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        scores = _softcap(scores, softcap)
+        qpos = torch.full((1, 1), q_offset, device=q.device)
+        mask = _mask(qpos, t, q.device, causal=causal, window=window,
+                     kv_len=kv_len)
+        scores = scores.masked_fill(~mask, -1e30)
+        p = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+        return out.to(q.dtype).reshape(b, 1, h, dh)
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+
+    def block(q_blk, off: int):
+        # q_blk: (B, c, H, Dh)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), kf) * scale
+        scores = _softcap(scores, softcap)
+        qpos = off + torch.arange(q_blk.shape[1], device=q.device)[:, None]
+        mask = _mask(qpos, t, q.device, causal=causal, window=window,
+                     kv_len=kv_len)
+        scores = scores.masked_fill(~mask, -1e30)
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+    if chunk is None or chunk >= s or s % chunk != 0:
+        return block(q, q_offset)
+    return torch.cat([block(q[:, i:i + chunk], q_offset + i)
+                      for i in range(0, s, chunk)], dim=1)
+
+
+# ---------------------------------------------------------------------- MLPs
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
+
+
+def _act(kind: str):
+    return F.silu if kind == "swiglu" else _gelu
+
+
+class MLP(nn.Module):
+    """``w_up``, ``w_down`` and, for gated kinds, ``w_gate``."""
+
+    def __init__(self, d_model: int, d_ff: int, kind: str, dtype,
+                 generator: torch.Generator, device):
+        super().__init__()
+        self.w_up = _dense_init((d_model, d_ff), dtype, generator, device)
+        self.w_down = _dense_init((d_ff, d_model), dtype, generator, device)
+        if kind in ("swiglu", "geglu"):
+            self.w_gate = _dense_init((d_model, d_ff), dtype, generator,
+                                      device)
+
+
+def mlp_apply(p, x, kind: str):
+    if kind in ("swiglu", "geglu"):
+        h = _act(kind)(x @ p.w_gate) * (x @ p.w_up)
+        return h @ p.w_down
+    return _gelu(x @ p.w_up) @ p.w_down
+
+
+def init_mlp(d_model: int, d_ff: int, kind: str, dtype,
+             generator: torch.Generator, device) -> MLP:
+    return MLP(d_model, d_ff, kind, dtype, generator, device)
+
+
+# ----------------------------------------------------------- attention block
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo`` (``x @ w`` layout, as the
+    reference)."""
+
+    def __init__(self, cfg, dtype, generator: torch.Generator, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim_
+        self.wq = _dense_init((d, cfg.n_heads * hd), dtype, generator, device)
+        self.wk = _dense_init((d, cfg.n_kv_heads * hd), dtype, generator,
+                              device)
+        self.wv = _dense_init((d, cfg.n_kv_heads * hd), dtype, generator,
+                              device)
+        self.wo = _dense_init((cfg.n_heads * hd, d), dtype, generator, device)
+
+
+def init_attention(cfg, dtype, generator: torch.Generator,
+                   device) -> Attention:
+    return Attention(cfg, dtype, generator, device)
+
+
+def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
+                    kv_cache=None, cache_len: Optional[int] = None):
+    """Returns ``(out, new_kv)``: ``new_kv`` is ``(k, v)`` of this call's
+    tokens when ``kv_cache`` is None, else the cache tuple, whose
+    ``(B, T, Hk, Dh)`` tensors this call writes in place at
+    ``cache_len`` (the start clamped to ``T - S``, as the reference's
+    ``dynamic_update_slice``). ``window_arr`` None disables windowing."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    offset = cache_len if cache_len is not None else 0
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    positions = offset + torch.arange(s, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        start = max(0, min(cache_len, ck.shape[1] - s))
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
+        out = gqa_attention(q, ck, cv, q_offset=offset,
+                            window=window_arr, softcap=cfg.attn_softcap,
+                            kv_len=cache_len + s,
+                            chunk=cfg.attention_chunk)
+        new_kv = (ck, cv)
+    else:
+        out = gqa_attention(q, k, v, q_offset=0, window=window_arr,
+                            softcap=cfg.attn_softcap,
+                            chunk=cfg.attention_chunk)
+        new_kv = (k, v)
+    out = out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+    return out, new_kv

@@ -1,0 +1,130 @@
+"""Mixture-of-Experts FFN of the PyTorch port (counterpart of
+``repro.models.moe``): token-choice top-k routing with capacity drop.
+
+Dispatch is gather-based, as in the reference:
+
+  1. stable-sort the flattened (token, choice) expert assignments;
+  2. each expert's tokens form a contiguous run — its k-th capacity slot
+     is ``order[start_e + k]``;
+  3. the (E, C, d) dispatch buffer is a gather from the token array, and
+     the combine a gather from the expert outputs.
+
+Tokens overflowing an expert's capacity
+``max(1, int(T * k / E * capacity_factor))`` are dropped (their gate
+weight contributes nothing). In decode ``T`` is the slot count.
+
+``impl="ep"`` takes the reference's expert-parallel path only inside a
+sharding context; the port has no sharding context yet (expert
+parallelism comes with the mesh slice), so every config takes the dense
+path here, as the reference does outside one.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import _act, _dense_init
+
+
+class SharedExperts(nn.Module):
+    """The always-on experts: one gated MLP of width
+    ``d_ff_expert * n_shared_experts``."""
+
+    def __init__(self, d: int, fs: int, dtype, generator, device):
+        super().__init__()
+        self.w_gate = _dense_init((d, fs), dtype, generator, device)
+        self.w_up = _dense_init((d, fs), dtype, generator, device)
+        self.w_down = _dense_init((fs, d), dtype, generator, device)
+
+
+class MoE(nn.Module):
+    """``router`` (float32), expert ``w_gate``/``w_up`` ``(E, d, f)`` and
+    ``w_down`` ``(E, f, d)``, optional ``shared``."""
+
+    def __init__(self, cfg, dtype, generator: torch.Generator, device):
+        super().__init__()
+        m = cfg.moe
+        d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
+        self.router = _dense_init((d, e), torch.float32, generator, device)
+        self.w_gate = _dense_init((e, d, f), dtype, generator, device)
+        self.w_up = _dense_init((e, d, f), dtype, generator, device)
+        self.w_down = _dense_init((e, f, d), dtype, generator, device)
+        if m.n_shared_experts:
+            self.shared = SharedExperts(d, f * m.n_shared_experts, dtype,
+                                        generator, device)
+
+
+def init_moe(cfg, dtype, generator: torch.Generator, device) -> MoE:
+    return MoE(cfg, dtype, generator, device)
+
+
+def route(p, cfg, xt):
+    """The router and the capacity bookkeeping of ``moe_apply`` for
+    tokens ``xt`` (T, d): ``(probs, gate, ids_flat, order, counts,
+    starts, cap, slot)``. ``slot`` (T·k,) is each (token, choice) pair's
+    place in its expert's run: the pair is kept where ``slot < cap``."""
+    m = cfg.moe
+    t = xt.shape[0]
+    e, k = m.n_experts, m.top_k
+    tk = t * k
+    logits = (xt @ p.router.to(xt.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    # top-k with equal probabilities in index order, as lax.top_k (a
+    # stable descending sort; torch.topk leaves the order of ties open)
+    gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = gate[:, :k], ids[:, :k]                    # (T, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    ids_flat = ids.reshape(-1)                             # (TK,)
+    order = torch.argsort(ids_flat, stable=True)
+    sorted_ids = ids_flat[order]
+    counts = torch.bincount(ids_flat, minlength=e)         # (E,)
+    starts = torch.searchsorted(sorted_ids,
+                                torch.arange(e, device=xt.device))
+    cap = max(1, int(t * k / e * m.capacity_factor))
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(tk, device=xt.device)
+    slot = rank - starts[ids_flat]
+    return probs, gate, ids_flat, order, counts, starts, cap, slot
+
+
+def moe_apply(p, cfg, x):
+    """x: (B, S, d) → (out (B, S, d), aux_loss scalar), the dense
+    formulation."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    e, k = m.n_experts, m.top_k
+    tk = t * k
+    probs, gate, ids_flat, order, counts, starts, cap, slot = route(
+        p, cfg, xt)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(0)
+    aux = m.router_aux_weight * e * torch.sum(me * counts.float() / tk)
+
+    # --- dispatch: gather each expert's capacity run ------------------
+    arange_c = torch.arange(cap, device=x.device)
+    slot_idx = starts[:, None] + arange_c[None, :]                 # (E, C)
+    valid = arange_c[None, :] < torch.clamp_max(counts, cap)[:, None]
+    pair = order[torch.clamp(slot_idx, 0, tk - 1)]                 # (E, C)
+    disp = xt[pair // k]                                           # (E, C, d)
+    disp = torch.where(valid[..., None], disp, 0)
+
+    act = _act(cfg.mlp)
+    h = act(torch.einsum("ecd,edf->ecf", disp, p.w_gate)) \
+        * torch.einsum("ecd,edf->ecf", disp, p.w_up)
+    out_e = torch.einsum("ecf,efd->ecd", h, p.w_down)              # (E, C, d)
+
+    # --- combine: gather every (token, choice)'s expert output --------
+    gathered = out_e[ids_flat, torch.clamp(slot, 0, cap - 1)]      # (TK, d)
+    gathered = torch.where((slot < cap)[:, None], gathered, 0)
+    w_flat = gate.reshape(-1, 1).to(x.dtype)
+    out = (gathered * w_flat).reshape(t, k, d).sum(1)              # (T, d)
+
+    if m.n_shared_experts:
+        sp = p.shared
+        hs = act(xt @ sp.w_gate) * (xt @ sp.w_up)
+        out = out + hs @ sp.w_down
+    return out.reshape(b, s, d), aux

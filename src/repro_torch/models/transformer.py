@@ -1,0 +1,249 @@
+"""Decoder-only transformer LM of the PyTorch port (counterpart of
+``repro.models.transformer``): dense and MoE variants, GQA, sliding
+window (gemma2's alternating pattern), attention and logit softcaps,
+tied embeddings — the five LM architectures of ``repro_torch.configs``
+are instances of this one module.
+
+The reference scans stacked ``(L, ...)`` layer parameters; here the
+layers are an ``nn.ModuleList`` of blocks and a Python loop runs them.
+The reference's sharding constraints are no-ops outside a sharding
+context and the port has none yet (sharding comes with the mesh slice),
+so nothing here constrains a layout.
+
+API (``params`` is the ``LM`` module that ``init_lm`` returns):
+  init_lm(cfg, generator, device)        → params
+  apply_lm(params, cfg, tokens)          → (logits, aux)    # training
+  lm_loss(params, cfg, tokens, labels)   → (loss, metrics)  # chunked xent
+  init_cache(cfg, batch, max_len, dtype) → cache
+  prefill(params, cfg, tokens, cache)    → (logits_last, cache)
+  decode_step(params, cfg, cache, tok)   → (logits, cache)
+  params_from_jax(cfg, tree, device)     → params (the reference's tree)
+
+A cache is ``{"k", "v": (L, B, max_len, Hk, Dh) tensors, "len": int}``;
+``prefill`` and ``decode_step`` write its ``k``/``v`` in place and return
+a dict that shares them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import (
+    _dense_init,
+    attention_apply,
+    init_attention,
+    init_mlp,
+    init_rms_norm,
+    mlp_apply,
+    rms_norm,
+)
+
+_BIG_WINDOW = 1 << 30
+
+
+class Block(nn.Module):
+    """One transformer block's parameters: ``attn``, ``attn_norm``,
+    ``mlp_norm``, ``moe`` or ``mlp``, and (gemma2 family) the post-block
+    norms."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        dt = cfg.pdtype
+        self.attn = init_attention(cfg, dt, generator, device)
+        self.attn_norm = init_rms_norm(cfg.d_model, dt, device)
+        self.mlp_norm = init_rms_norm(cfg.d_model, dt, device)
+        if cfg.moe is not None:
+            self.moe = moe_lib.init_moe(cfg, dt, generator, device)
+        else:
+            self.mlp = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, dt, generator,
+                                device)
+        if cfg.attn_softcap is not None:  # gemma2 family: post-block norms
+            self.post_attn_norm = init_rms_norm(cfg.d_model, dt, device)
+            self.post_mlp_norm = init_rms_norm(cfg.d_model, dt, device)
+
+
+class LM(nn.Module):
+    """``embed`` (V, d), ``layers``, ``final_norm`` and, untied,
+    ``unembed`` (d, V)."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.embed = _dense_init((cfg.vocab, cfg.d_model), cfg.pdtype,
+                                 generator, device, scale=0.02)
+        self.layers = nn.ModuleList(Block(cfg, generator, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = init_rms_norm(cfg.d_model, cfg.pdtype, device)
+        if not cfg.tie_embeddings:
+            self.unembed = _dense_init((cfg.d_model, cfg.vocab), cfg.pdtype,
+                                       generator, device)
+
+
+def init_lm(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
+    """Random weights drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``), on ``device`` (default CUDA; raises without one)."""
+    return LM(cfg, generator, resolve_device(device)).requires_grad_(False)
+
+
+def _layer_window(cfg: LMConfig, idx: int) -> Optional[int]:
+    """The layer's attention window (None ⇒ no window mask at all)."""
+    if cfg.window is None:
+        return None
+    if cfg.window_pattern <= 1:
+        return cfg.window
+    return cfg.window if idx % cfg.window_pattern == 0 else _BIG_WINDOW
+
+
+def _block(cfg: LMConfig, lp, x, idx: int, kv=None, cache_len=None):
+    """One transformer block. Returns (x, aux, new_kv)."""
+    window = _layer_window(cfg, idx)
+    h = rms_norm(lp.attn_norm, x)
+    attn_out, new_kv = attention_apply(
+        lp.attn, cfg, h, window_arr=window, kv_cache=kv,
+        cache_len=cache_len)
+    if cfg.attn_softcap is not None:
+        attn_out = rms_norm(lp.post_attn_norm, attn_out)
+    x = x + attn_out
+    h = rms_norm(lp.mlp_norm, x)
+    if cfg.moe is not None:
+        ff, aux = moe_lib.moe_apply(lp.moe, cfg, h)
+    else:
+        ff = mlp_apply(lp.mlp, h, cfg.mlp)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.attn_softcap is not None:
+        ff = rms_norm(lp.post_mlp_norm, ff)
+    return x + ff, aux, new_kv
+
+
+def _stack_scan(cfg: LMConfig, params, x, cache=None, cache_len=None):
+    """The layers in order (and the KV cache's layer slices, if
+    serving)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for idx, lp in enumerate(params.layers):
+        kv = None if cache is None else (cache["k"][idx], cache["v"][idx])
+        x, a, _ = _block(cfg, lp, x, idx, kv=kv, cache_len=cache_len)
+        aux = aux + a
+    return x, aux
+
+
+def _unembed_weight(params, cfg: LMConfig):
+    return params.embed.T if cfg.tie_embeddings else params.unembed
+
+
+def _softcap_logits(cfg: LMConfig, logits):
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def _logits(params, cfg: LMConfig, x):
+    x = rms_norm(params.final_norm, x)
+    return _softcap_logits(
+        cfg, x @ _unembed_weight(params, cfg).to(x.dtype))
+
+
+def _embed(params, cfg: LMConfig, tokens):
+    return params.embed[tokens].to(cfg.adtype)
+
+
+def apply_lm(params, cfg: LMConfig, tokens):
+    """Training forward: tokens int[B, S] → (logits [B, S, V], aux)."""
+    x = _embed(params, cfg, tokens)
+    x, aux = _stack_scan(cfg, params, x)
+    return _logits(params, cfg, x), aux
+
+
+def lm_loss(params, cfg: LMConfig, tokens, labels, loss_chunk: int = 512):
+    """Next-token cross-entropy over sequence chunks, so the (B, S, V)
+    logits tensor is never whole (the forward value; training comes
+    with the training slice)."""
+    x = _embed(params, cfg, tokens)
+    x, aux = _stack_scan(cfg, params, x)
+    x = rms_norm(params.final_norm, x)
+    w = _unembed_weight(params, cfg).to(x.dtype)
+
+    b, s, _ = x.shape
+    c = min(loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"loss chunk {c}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        logits = _softcap_logits(cfg, x[:, i:i + c] @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, i:i + c, None])[..., 0]
+        total = total + (lse - gold).sum()
+    loss = total / (b * s) + aux
+    return loss, {"xent": total / (b * s), "aux": aux}
+
+
+# ------------------------------------------------------------------ serving
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    dtype = dtype or cfg.adtype
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "len": 0}
+
+
+def prefill(params, cfg: LMConfig, tokens, cache):
+    """Run the prompt through the model, filling cache[0:S]."""
+    x = _embed(params, cfg, tokens)
+    x, _ = _stack_scan(cfg, params, x, cache=cache, cache_len=0)
+    cache = {"k": cache["k"], "v": cache["v"], "len": int(tokens.shape[1])}
+    return _logits(params, cfg, x[:, -1:]), cache
+
+
+def decode_step(params, cfg: LMConfig, cache, tokens):
+    """One decode step: tokens int[B, 1] → (logits [B, 1, V], cache)."""
+    x = _embed(params, cfg, tokens)
+    x, _ = _stack_scan(cfg, params, x, cache=cache, cache_len=cache["len"])
+    cache = {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
+    return _logits(params, cfg, x), cache
+
+
+# ------------------------------------------------- weights of the reference
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: same bits as torch's
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _load(module: nn.Module, tree, device) -> None:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            _load(getattr(module, key), value, device)
+        else:
+            setattr(module, key, nn.Parameter(_tensor(value, device),
+                                              requires_grad=False))
+
+
+def params_from_jax(cfg: LMConfig, tree, device=None) -> LM:
+    """The port's model holding the reference's parameters: ``tree`` is
+    ``repro.models.transformer.init_lm``'s tree as numpy arrays, with
+    the stacked ``(L, ...)`` layer arrays."""
+    dev = resolve_device(device)
+    model = LM(cfg, None, "meta")
+    _load(model, {k: v for k, v in tree.items() if k != "layers"}, dev)
+    for idx, block in enumerate(model.layers):
+        _load(block, _layer_slice(tree["layers"], idx), dev)
+    missing = [n for n, p in model.named_parameters() if p.is_meta]
+    if missing:
+        raise ValueError(f"the tree has no {missing}")
+    return model
+
+
+def _layer_slice(tree, idx: int):
+    return {k: (_layer_slice(v, idx) if isinstance(v, dict) else
+                np.asarray(v)[idx]) for k, v in tree.items()}

@@ -1,6 +1,8 @@
 """Serving layer of the PyTorch port: the async SSSP serving tier
 (``Server`` — continuous batching, multi-graph tenancy, admission
-control; DESIGN.md §13).
+control; DESIGN.md §13), the LM-decode continuous batcher
+(``BatchServer``, with ``generate``), and the deprecated synchronous
+``SSSPServer`` shim kept for legacy call sites.
 
     from repro_torch.serve import Server
     from repro_torch.api import SingleSource, PointToPoint
@@ -14,9 +16,14 @@ control; DESIGN.md §13).
 In a process group of more than one rank (``sharded_*`` tenants under
 ``torchrun``), rank 0 takes the requests and forms every batch; the
 other ranks run its batch plan (``repro_torch.serve.server``'s note).
-The reference's LM-decode batcher and its deprecated ``SSSPServer``
-(``repro.serve.decode``) are ROADMAP Queue 1 item 6e.
 """
+from repro_torch.serve.decode import (
+    BatchServer,
+    Request,
+    SSSPQuery,
+    SSSPServer,
+    generate,
+)
 from repro_torch.serve.server import (
     RequestRejected,
     RequestTrace,
@@ -26,9 +33,14 @@ from repro_torch.serve.server import (
 )
 
 __all__ = [
+    "BatchServer",
+    "Request",
     "RequestRejected",
     "RequestTrace",
+    "SSSPQuery",
+    "SSSPServer",
     "Server",
     "Ticket",
     "UpdateApplied",
+    "generate",
 ]

@@ -5,12 +5,11 @@
   the reference package ``repro`` (AST scan).
 * ``Engine(g, cfg)`` without ``device`` asks for CUDA and raises where
   there is none, rather than running on the CPU.
-* The parts not ported yet raise ``NotImplementedError`` naming their
-  ROADMAP item (LM serving; the batched queries, the frontier policies,
-  dynamic updates, the landmark modes, tuning, the deprecated solver
-  shims, the SSSP serving tier, the sharded strategies and sharded
-  serving are ported); the launcher runs end to end on the CPU with
-  --verify.
+* The parts once refused answer now (the batched queries, the frontier
+  policies, dynamic updates, the landmark modes, tuning, the deprecated
+  solver shims, the SSSP serving tier, the sharded strategies, sharded
+  serving and LM decode serving are ported); the launcher runs end to
+  end on the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -69,6 +68,10 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/configs/lm_archs.py",
                  "src/repro_torch/configs/sssp_gamemap.py",
                  "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/serve/decode.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_multi_source_sssp.py",
                  "examples/torch_sssp_gamemap.py", "chip_smoke.py"):
@@ -98,8 +101,9 @@ def test_unported_parts_raise_with_roadmap_item():
     g = watts_strogatz(20, 4, 0.1, seed=0)
     cfg = DeltaConfig(delta=5)
     from repro_torch.launch.serve import main as serve_main
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        serve_main(["--arch", "gemma2-9b"])
+    # ported: LM decode serving (--arch)
+    serve_main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu",
+                "--requests", "2", "--max-new", "2"])
     # ported: sharded serving (one shard without a process group; more
     # shards than ranks are refused as the sharded strategies refuse them)
     small = ["--sssp", "--device", "cpu", "--nodes", "300", "--requests",
