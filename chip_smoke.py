@@ -85,7 +85,7 @@
    at each path's shapes (``bucket_scan`` runs on the small-world and
    the game-map paths: n = 1 M and n = 9 M). ``launches`` in the
    kernels line sums every path's counted runs (phases 3, 5, 8, 9, 11,
-   12, 13, 14; phase 15 launches none);
+   12, 13, 14; phases 15 and 16 launch none);
    ``by_path`` gives each path's launches and numbers, and the entry's
    ``ms``, ``cold_ms``, ``plain_ms`` and ``bound_ms`` are their means
    weighted by those launches, so they move when a path is added.
@@ -314,6 +314,49 @@
    (``torch.cuda.max_memory_allocated``), the bounds (weights read at
    3.35 TB/s; 2 * parameters * tokens FLOP at 989 TFLOP/s) and the
    card's name and power limit.
+16. Training (run after phase 15 has freed its weights; the counters set
+   to 0 just before it and read just after: it launches none of the four
+   kernels, as the reference's training path reaches no Pallas kernel).
+   (a) gemma2-9b at full width (d_model 3584, 16/8 heads of 256, d_ff
+   14336 GeGLU, vocab 256 000, softcaps 50/30, tied embeddings, bf16,
+   remat) cut to ``TR_LAYERS`` = 4 layers (two local, two global; 1.71 B
+   parameters), initialised on the card from a seeded
+   ``torch.Generator``, one sequence of ``TR_TOKENS`` = 4608 seeded
+   tokens (nine 512-token loss chunks, past the 4096 window): the bf16
+   gradient of ``lm_loss`` (timed after a warm-up); the same weights
+   cast up to float32 and their gradient; the float32 gradient's
+   directional derivative along one random direction (each leaf's part
+   normal times the leaf's RMS) against a central difference at
+   relative step ``TR_FD_STEP``, within ``TR_FD_REL``; the bf16
+   gradient against the float32 one within ``TR_BF16_REL`` (‖Δ‖/‖g₃₂‖
+   over all leaves) and ``TR_BF16_LEAF_REL`` (per leaf). Then
+   ``TR_STEPS`` AdamW steps (lr ``TR_LR``) through ``make_train_step`` on
+   the batch, the update timed on its own, the last step profiled; the
+   loss after them below the first. Then one SGD-momentum step with
+   ``compression="int8"``: every leaf's residual equal to its fed
+   gradient minus its dequantized int8 value, bit for bit. (b) GIN,
+   GatedGCN and GAT at their published widths on ``random_graph(2708,
+   10556)`` (Cora's size) with ``full_graph_sm``'s 1433 features and 7
+   classes, SchNet on ``molecule_batch(128, 30, 64)`` (the ``molecule``
+   cell), each ``TR_SMALL_STEPS`` AdamW steps at lr ``TR_GNN_LR``; DLRM
+   at its published widths (embed 128, bottom MLP 512-256-128, top MLP
+   1024-1024-512-256-1, 26 tables) with each table cut to ``TR_DLRM_CAP``
+   = 2**20 rows (7.4 M rows, 3.8 GB; the full Criteo tables, 96 GB, do
+   not fit one card), ``TR_SMALL_STEPS`` AdamW steps on
+   ``SyntheticClicks`` batches of ``TR_DLRM_BATCH``: every loss finite and
+   the last below the first. (c) In a process of its own started with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (``chip_smoke.py --train-restart
+   DIR``), under ``torch.use_deterministic_algorithms(True)``: a
+   ``Trainer`` of the tests' 2-layer LM, and one of the DLRM smoke config
+   with int8 compression, that fails at step 13 and restarts from its
+   step-8 checkpoint end bitwise equal to an uninterrupted run of 24
+   steps (parameters, optimizer state, residuals). (d) ``python -m
+   repro_torch.launch.train --arch gemma2-9b --smoke --steps 20
+   --ckpt-dir DIR`` as a process of its own exits 0 with its loss
+   fallen. (c) and (d) start first and run beside (a) and (b). ``[train]``
+   lines give the times of forward+backward and of the update, the peak
+   memory above the phase's start, the bounds, a profiled train step and
+   the card's name and power limit.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -412,6 +455,27 @@ LM_BF16_MAX_ABS, LM_BF16_REL, LM_MARGIN, LM_F32_TOL = 0.5, 0.05, 0.0625, 1e-4
 LM_LIMIT_S = 600
 # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
+# phase 16: gemma2-9b at full width cut to TR_LAYERS layers (two local,
+# two global), one sequence of TR_TOKENS tokens (nine 512-token loss
+# chunks, past the 4096 window); the central difference's relative step
+# along its random direction; the tolerances (PERF.md, PR 23): the
+# float32 gradient's directional derivative against the central
+# difference, the bf16 gradient against the float32 one (overall and
+# per leaf); the AdamW steps on one batch and the learning rates (the
+# GNNs': their unnormalised sums give losses of 10^2-10^3 at
+# initialisation, and larger steps oscillate there); the
+# Cora-sized graph of the GNNs, SchNet's molecule batch (the "molecule"
+# cell), the DLRM table cap and batch, the steps of each; the children's
+# time limit
+TR_ARCH, TR_LAYERS, TR_TOKENS, TR_CHUNK = "gemma2-9b", 4, 4608, 512
+TR_FD_STEP, TR_FD_REL = 1e-2, 0.02
+TR_BF16_REL, TR_BF16_LEAF_REL = 0.05, 0.1
+TR_STEPS, TR_LR, TR_GNN_LR = 3, 1e-3, 1e-4
+TR_GNN_NODES, TR_GNN_EDGES, TR_MOLECULES = 2708, 10556, (128, 30, 64)
+TR_DLRM_CAP, TR_DLRM_BATCH, TR_SMALL_STEPS = 2**20, 2048, 5
+TR_LIMIT_S = 300
+# H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
 
 
 def check(cond, what: str) -> None:
@@ -3262,6 +3326,478 @@ def lm_serving_path(torch, np, cuda, counters, smi) -> None:
     log(f"[lm] phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 16: training ----------------------------------------------------
+
+def train_restart(work: str) -> int:
+    """Phase 16(c) in a process of its own (``chip_smoke.py
+    --train-restart DIR``), started with ``CUBLAS_WORKSPACE_CONFIG`` set
+    so that cuBLAS is deterministic from its first call: under
+    ``torch.use_deterministic_algorithms(True)``, a ``Trainer`` run that
+    fails at step 13 and restarts from its step-8 checkpoint ends
+    bitwise equal to an uninterrupted run (parameters, optimizer state,
+    residuals), for the tests' 2-layer LM and for the DLRM smoke config
+    with int8 compression."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.data import SyntheticClicks, SyntheticTokens
+    from repro_torch.models import dlrm
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig, run_with_restarts
+
+    torch.use_deterministic_algorithms(True)
+    cuda = torch.device("cuda", 0)
+    torch.cuda.set_device(cuda)
+    lm = LMConfig(name="t", n_layers=2, d_model=32, n_heads=2, n_kv_heads=1,
+                  d_ff=64, vocab=64)
+    rec = configs.get_config("dlrm-mlperf", smoke=True)
+    cases = {
+        "lm": (lambda: tf.init_lm(lm, torch.Generator(cuda).manual_seed(0),
+                                  cuda),
+               lambda p, b: tf.lm_loss(p, lm, b["tokens"], b["labels"],
+                                       loss_chunk=16),
+               SyntheticTokens(vocab=64, batch=4, seq_len=16, device=cuda),
+               "none"),
+        "dlrm": (lambda: dlrm.init_dlrm(
+                     rec, torch.Generator(cuda).manual_seed(0), cuda),
+                 lambda p, b: dlrm.dlrm_loss(p, rec, b["dense"], b["sparse"],
+                                             b["labels"]),
+                 SyntheticClicks(rec.vocab_sizes, rec.n_dense, batch=64,
+                                 device=cuda),
+                 "int8")}
+    for name, (init, loss_fn, data, comp) in cases.items():
+        t0 = time.perf_counter()
+        tcfg = dict(total_steps=24, ckpt_interval=8, log_interval=100,
+                    compression=comp)
+        ref = Trainer(loss_fn, adamw(warmup_cosine(3e-3, 5, 30)), init(),
+                      data, TrainerConfig(ckpt_dir=f"{work}/{name}_ref",
+                                          **tcfg))
+        p_ref = ref.run()
+        fails = [13]
+
+        def make():
+            return Trainer(loss_fn, adamw(warmup_cosine(3e-3, 5, 30)),
+                           init(), data,
+                           TrainerConfig(ckpt_dir=f"{work}/{name}", **tcfg),
+                           failure_at_step=fails.pop(0) if fails else None)
+
+        p_new, trainer = run_with_restarts(make)
+        check(trainer.start_step == 8, f"{name}: resumed at "
+              f"{trainer.start_step}, not at the step-8 checkpoint")
+        new = dict(p_new.named_parameters())
+        for k, p in p_ref.named_parameters():
+            check(torch.equal(p, new[k]), f"{name}: {k} differs after the "
+                  "restart")
+        for key, tree in ref.opt_state.items():
+            for k, t in (tree.items() if isinstance(tree, dict)
+                         else [(key, tree)]):
+                other = trainer.opt_state[key]
+                check(torch.equal(t, other[k] if isinstance(tree, dict)
+                                  else other),
+                      f"{name}: optimizer state {key} {k} differs")
+        for k, r in (ref.residuals or {}).items():
+            check(torch.equal(r, trainer.residuals[k]),
+                  f"{name}: residual {k} differs")
+        log(f"[train] restart {name} (compression {comp}): failure at step "
+            f"13, resumed from step 8, parameters, optimizer state and "
+            f"residuals bitwise equal to the uninterrupted run after 24 "
+            f"steps ({sum(p.numel() for p in new.values())} parameters, "
+            f"deterministic algorithms on; {time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
+def training_path(torch, np, cuda, counters, smi) -> None:
+    """Phase 16: training on the card (module note)."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=cuda)
+    base = torch.cuda.memory_allocated()
+
+    def peak_gb():
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (c) and (d) in processes of their own, started first: their start-up
+    # (imports, the CUDA context) overlaps parts (a) and (b)
+    work = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = {
+        "restart": subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-restart",
+             work.name], env=dict(env, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True),
+        "launcher": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TR_ARCH, "--smoke", "--steps", "20", "--ckpt-dir",
+             f"{work.name}/launcher"], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    try:
+        train_gemma(torch, np, cuda, gen, smi, timed, peak_gb)
+        train_small_models(torch, np, cuda, gen, smi, timed, peak_gb)
+        # -- (c, d) ---------------------------------------------------------
+        outs = {}
+        for name, proc in children.items():
+            out, _ = proc.communicate(timeout=max(
+                1.0, TR_LIMIT_S - (time.perf_counter() - t_phase)))
+            outs[name] = out
+            check(proc.returncode == 0, f"the {name} child failed:\n"
+                  f"{out[-4000:]}")
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        work.cleanup()
+    for line in outs["restart"].splitlines():
+        if line.startswith("[train] restart"):
+            log(line)
+    check(sum(ln.startswith("[train] restart")
+              for ln in outs["restart"].splitlines()) == 2,
+          f"the restart child printed no result:\n{outs['restart'][-2000:]}")
+    lines = [ln for ln in outs["launcher"].splitlines()
+             if ln.startswith("[train] loss")]
+    check(len(lines) == 1, f"the training launcher printed no loss:\n"
+          f"{outs['launcher'][-2000:]}")
+    first, last = (float(x) for x in lines[0].split()[2:5:2])
+    check(np.isfinite(last) and last < first,
+          f"the training launcher's loss did not fall: {lines[0]}")
+    log(f"[train] launcher --arch {TR_ARCH} --smoke --steps 20 (its own "
+        f"process, beside parts (a) and (b)): {lines[0]}; the children were "
+        f"done {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the training path launched an SSSP kernel: {launches}")
+    log(f"[train] launches over phase 16: {json.dumps(launches)} (the "
+        "training path reaches no Pallas kernel in the reference and none "
+        "here)")
+    log(f"[train] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+
+def train_gemma(torch, np, cuda, gen, smi, timed, peak_gb) -> None:
+    """Phase 16(a): gemma2-9b at full width, ``TR_LAYERS`` layers
+    (module note)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.distributed import dequantize_int8, quantize_int8
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import Optimizer, adamw, sgdm
+    from repro_torch.train import init_residuals, make_train_step, steps
+
+    sync = torch.cuda.synchronize
+    # -- (a) gemma2-9b at full width, TR_LAYERS layers ----------------------
+    t_part = time.perf_counter()
+    full = configs.get_config(TR_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TR_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    check(cfg.remat and [cfg.layer_is_local(i) for i in range(TR_LAYERS)]
+          == [True, False] * (TR_LAYERS // 2),
+          f"{cfg.name}: not remat with two local and two global layers")
+    torch.cuda.reset_peak_memory_stats()
+    model = tf.init_lm(cfg, gen.manual_seed(0), device=cuda)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.n_params() + 2 * cfg.d_model * TR_LAYERS,
+          f"{cfg.name}: {n_params} parameters")
+    toks = torch.randint(0, cfg.vocab, (1, TR_TOKENS + 1),
+                         generator=gen.manual_seed(1), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def lm_loss_fn(c):
+        return lambda m, b=batch: tf.lm_loss(m, c, b["tokens"], b["labels"],
+                                             loss_chunk=TR_CHUNK)
+
+    def grads(m, c):
+        """(loss, {name: gradient}): the train step's autograd pass."""
+        loss, _, g = steps._grads(lm_loss_fn(c), m,
+                                  dict(m.named_parameters()), batch)
+        return float(loss), g
+
+    grads(model, cfg)                                # warm-up
+    (l16, g16), fb16_ms = timed(lambda: grads(model, cfg))
+    peak16 = peak_gb()
+    # the same weights cast up to float32
+    model32 = tf.LM(cfg32, None, "meta")
+    model32.load_state_dict({k: v.float() for k, v in
+                             model.state_dict().items()}, assign=True)
+    model32.requires_grad_(False)
+    (l32, g32), fb32_ms = timed(lambda: grads(model32, cfg32))
+    num = den = 0.0
+    leaf_err = {}
+    for k, g in g32.items():
+        d2 = float((g16[k].float() - g).double().square().sum())
+        n2 = float(g.double().square().sum())
+        num, den = num + d2, den + n2
+        leaf_err[k] = (d2 / n2) ** 0.5 if n2 > 0 else float(d2 > 0)
+    rel16 = (num / den) ** 0.5
+    worst = sorted(leaf_err.items(), key=lambda kv: -kv[1])[:4]
+    del g16
+    # a central difference along one random direction: each leaf's part
+    # normal, scaled by the leaf's RMS (norm gains start at 0: by 1e-3)
+    p32 = dict(model32.named_parameters())
+    p16 = dict(model.named_parameters())
+    gen.manual_seed(3)
+    direction = {}
+    for k, p in p32.items():
+        rms = float(torch.linalg.vector_norm(p)) / p.numel() ** 0.5
+        direction[k] = torch.randn(p.shape, generator=gen, device=cuda) \
+            * max(rms, 1e-3)
+    gdot = sum(float(torch.dot(g32[k].flatten().double(),
+                               direction[k].flatten().double()))
+               for k in p32)
+    del g32
+    loss32 = lm_loss_fn(cfg32)
+    sides = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for sign in (1.0, -1.0):
+            for k, p in p32.items():
+                p.copy_(p16[k]).add_(direction[k], alpha=sign * TR_FD_STEP)
+            sides.append(float(loss32(model32)[0]))
+        sync()
+    fd_ms = (time.perf_counter() - t0) * 1e3
+    fd = (sides[0] - sides[1]) / (2 * TR_FD_STEP)
+    fd_rel = abs(fd - gdot) / abs(gdot)
+    del model32, p32, direction
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = 6 * n_params * TR_TOKENS
+    log(f"[train] {cfg.name} ({TR_LAYERS} of {full.n_layers} layers, full "
+        f"width: d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff} {cfg.mlp}, vocab {cfg.vocab}, "
+        f"softcaps {cfg.attn_softcap}/{cfg.logit_softcap}, tied, remat; "
+        f"{n_params} parameters): one sequence of {TR_TOKENS} tokens, "
+        f"{TR_TOKENS // TR_CHUNK} loss chunks of {TR_CHUNK}; loss bf16 "
+        f"{l16:.5f}, float32 {l32:.5f}; forward+backward bf16 "
+        f"{fb16_ms:.1f} ms (peak {peak16:.3f} GB above the phase's start; "
+        f"bound {flops / BF16_FLOPS_PER_S * 1e3:.1f} ms: 6 * parameters * "
+        f"tokens FLOP at 989 TFLOP/s, the block recompute not counted), "
+        f"float32 {fb32_ms:.1f} ms (first float32 call; bound "
+        f"{flops / F32_FLOPS_PER_S * 1e3:.1f} ms at 67 TFLOP/s); {smi}")
+    log(f"[train] {cfg.name} gradients: float32 directional derivative "
+        f"along a random direction {gdot:.6e} against the central "
+        f"difference {fd:.6e} (relative step {TR_FD_STEP}; losses "
+        f"{sides[0]:.6f} / {sides[1]:.6f}, {fd_ms:.1f} ms): relative error "
+        f"{fd_rel:.3e} (tolerance {TR_FD_REL}); bf16 against float32 "
+        f"||g16 - g32|| / ||g32|| {rel16:.4f} (tolerance {TR_BF16_REL}), "
+        f"worst leaves " + ", ".join(f"{k} {v:.4f}" for k, v in worst)
+        + f" (tolerance {TR_BF16_LEAF_REL})")
+    check(fd_rel <= TR_FD_REL, f"{cfg.name}: float32 gradient against the "
+          f"central difference: relative error {fd_rel}")
+    check(rel16 <= TR_BF16_REL and worst[0][1] <= TR_BF16_LEAF_REL,
+          f"{cfg.name}: bf16 gradient against float32: {rel16}, {worst}")
+
+    # AdamW steps on the one batch, the update timed on its own
+    opt = adamw(TR_LR)
+    update_ms = []
+
+    def timed_update(g, st, p):
+        out, ms = timed(lambda: opt.update(g, st, p))
+        update_ms.append(ms)
+        return out
+
+    step = make_train_step(lm_loss_fn(cfg), Optimizer(opt.init, timed_update))
+    state = opt.init(dict(model.named_parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+
+    def one_step():
+        nonlocal state
+        _, state, _, metrics = step(model, state, None, batch)
+        losses.append(float(metrics["loss"]))
+
+    for _ in range(TR_STEPS - 1):
+        _, ms = timed(one_step)
+        step_ms.append(ms)
+    kern, ops, wall = profiled_ops(torch, one_step)     # the last step
+    busy = sum(kern.values())
+    with torch.no_grad():
+        after = float(lm_loss_fn(cfg)(model)[0])
+    peak_step = peak_gb()
+    check(len(losses) == TR_STEPS and all(np.isfinite(losses + [after]))
+          and after < losses[0],
+          f"{cfg.name}: AdamW losses {losses} then {after}: not falling")
+    log(f"[train] {cfg.name}: {TR_STEPS} AdamW steps (lr {TR_LR}) on the "
+        f"batch: loss {' -> '.join(f'{v:.4f}' for v in losses + [after])}; "
+        f"steps " + ", ".join(f"{v:.1f}" for v in step_ms) + " ms (the "
+        "last profiled), of which the update (AdamW over "
+        f"{n_params} parameters, float32 m and v) "
+        + ", ".join(f"{v:.1f}" for v in update_ms) + f" ms; peak "
+        f"{peak_step:.3f} GB above the phase's start; {smi}")
+    log(f"[profile] {cfg.name} train step (torch.profiler): {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle share {1 - busy / wall:.3f}); "
+        "by operator (device time of the kernels it launched): "
+        + "; ".join(f"{v:.1f} ms {k}" for k, v in ops[:12]) + "; by kernel: "
+        + "; ".join(f"{v:.1f} ms {k[:70]}" for k, v in sorted(
+            kern.items(), key=lambda kv: -kv[1])[:6]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step with int8 compression (SGD-momentum: a smaller state);
+    # every leaf's residual must be its fed gradient minus the dequantized
+    # int8 value, bit for bit
+    real = steps.compress_grads
+    seen = []
+
+    def checked(grads, residuals, **kw):
+        comp, res = real(grads, residuals, **kw)
+        for k, g in grads.items():
+            fed = g + residuals[k]
+            dq = dequantize_int8(*quantize_int8(fed))
+            check(torch.equal(comp[k], dq) and torch.equal(res[k], fed - dq),
+                  f"{cfg.name}: int8 compression of {k}: the residual is "
+                  "not g - dq")
+            seen.append(float(res[k].abs().max()))
+        return comp, res
+
+    steps.compress_grads = checked
+    try:
+        sgd = sgdm(TR_LR, clip_norm=1.0)
+        step8 = make_train_step(lm_loss_fn(cfg), sgd, compression="int8")
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, residuals, metrics), int8_ms = timed(lambda: step8(
+            model, sgd.init(dict(model.named_parameters())),
+            init_residuals(model, "int8"), batch))
+    finally:
+        steps.compress_grads = real
+    check(len(seen) == len(p16) and np.isfinite(float(metrics["loss"])),
+          f"{cfg.name}: the int8 step compressed {len(seen)} leaves")
+    log(f"[train] {cfg.name}: one SGD-momentum step with int8 compression "
+        f"({int8_ms:.1f} ms, loss {float(metrics['loss']):.4f}): every "
+        f"leaf's residual == g - dequantize(quantize(g)) bitwise ({len(seen)}"
+        f" leaves, largest |residual| {max(seen):.3e}); peak "
+        f"{peak_gb():.3f} GB above the phase's start")
+    del model, residuals, metrics, p16, step8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] part (a) took {time.perf_counter() - t_part:.1f} s")
+
+
+def train_small_models(torch, np, cuda, gen, smi, timed,
+                       peak_gb) -> None:
+    """Phase 16(b): the GNNs and DLRM at their published widths (module
+    note)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.configs.gnn_archs import with_shape_dims
+    from repro_torch.data import (SyntheticClicks, gnn_full_batch,
+                                  molecule_batch)
+    from repro_torch.graphs import random_graph
+    from repro_torch.models import dlrm, gnn
+
+    # -- (b) the GNNs and DLRM at their published widths ----------------
+    t_part = time.perf_counter()
+    g = random_graph(TR_GNN_NODES, TR_GNN_EDGES, seed=0, device=cuda)
+    for arch in ("gin-tu", "gatedgcn", "gat-cora", "schnet"):
+        gcfg = with_shape_dims(configs.get_config(arch), "full_graph_sm")
+        if arch == "schnet":
+            mb = molecule_batch(*TR_MOLECULES, seed=0, device=cuda)
+            inputs = {k: mb[k] for k in ("pos", "atom_z", "src", "dst",
+                                         "mol_id")}
+            labels, mask = mb["energy"], None
+        else:
+            fb = gnn_full_batch(TR_GNN_NODES, gcfg.d_in, gcfg.n_classes,
+                                seed=0, device=cuda)
+            inputs = {"x": fb["x"], "src": g.src, "dst": g.dst}
+            labels, mask = fb["labels"], fb["label_mask"]
+        small_run(torch, np, gnn.init_gnn(gcfg, gen.manual_seed(0), cuda),
+                  lambda p, b, c=gcfg, i=inputs, y=labels, m=mask:
+                  gnn.gnn_loss(p, c, i, y, m),
+                  lambda _: None, TR_GNN_LR, arch, smi, timed)
+    rec = configs.get_config("dlrm-mlperf")
+    rcfg = dataclasses.replace(rec, vocab_sizes=tuple(
+        min(v, TR_DLRM_CAP) for v in rec.vocab_sizes))
+    clicks = SyntheticClicks(rcfg.vocab_sizes, rcfg.n_dense,
+                             batch=TR_DLRM_BATCH, device=cuda)
+    torch.cuda.reset_peak_memory_stats()
+    model = dlrm.init_dlrm(rcfg, gen.manual_seed(0), cuda)
+    rows = sum(t.shape[0] for t in model.tables)
+    capped = sum(v > TR_DLRM_CAP for v in rec.vocab_sizes)
+    small_run(torch, np, model,
+              lambda p, b: dlrm.dlrm_loss(p, rcfg, b["dense"],
+                                          b["sparse"], b["labels"]),
+              clicks.batch_at, TR_LR, f"dlrm ({rows} table rows: "
+              f"{capped} of {rcfg.n_sparse} tables capped at "
+              f"{TR_DLRM_CAP} rows; "
+              f"batch {TR_DLRM_BATCH}; peak then "
+              f"{{peak:.3f}} GB)", smi, timed, peak_gb)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] part (b) took {time.perf_counter() - t_part:.1f} s")
+
+
+def profiled_ops(torch, fn):
+    """One profiled call of ``fn`` (``torch.profiler``): device time by
+    CUDA kernel name, in ms; the operators (aten ops) by the device time
+    of the kernels each launched itself, largest first; the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern, ops = {}, {}
+    for e in prof.key_averages():
+        dt = e.self_device_time_total / 1e3
+        if dt <= 0:
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kern[e.key] = kern.get(e.key, 0.0) + dt
+        else:
+            ops[e.key] = ops.get(e.key, 0.0) + dt
+    return kern, sorted(ops.items(), key=lambda kv: -kv[1]), wall
+
+
+def small_run(torch, np, model, loss_fn, batch_at, lr, what, smi, timed,
+              peak_gb=None):
+    """``TR_SMALL_STEPS`` AdamW steps of ``model`` at learning rate ``lr``
+    (the batch of step i is ``batch_at(i)``, or none); the loss must be
+    finite and fall."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    opt = adamw(lr)
+    step = make_train_step(loss_fn, opt)
+    state = opt.init(dict(model.named_parameters()))
+    losses, ms = [], []
+    for i in range(TR_SMALL_STEPS):
+        (_, state, _, metrics), t = timed(
+            lambda: step(model, state, None, batch_at(i)))
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+    n_params = sum(p.numel() for p in model.parameters())
+    if peak_gb is not None:
+        what = what.format(peak=peak_gb())
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{what}: losses {losses} not falling")
+    log(f"[train] {what}: {n_params} parameters, {TR_SMALL_STEPS} AdamW "
+        f"steps (lr {lr}), loss "
+        f"{' -> '.join(f'{v:.4f}' for v in losses)}; steps "
+        f"{', '.join(f'{v:.1f}' for v in ms)} ms; {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3682,6 +4218,9 @@ def main() -> int:
     # -- 15. LM decode serving (launches no SSSP kernel) --------------------
     lm_serving_path(torch, np, cuda, counters, smi)
 
+    # -- 16. training (launches no SSSP kernel) -----------------------------
+    training_path(torch, np, cuda, counters, smi)
+
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
 
@@ -3861,4 +4400,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in child:
         sys.exit(child[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]),
                                     sys.argv[4]))
+    if sys.argv[1:2] == ["--train-restart"]:
+        sys.exit(train_restart(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""Graph substrate of the PyTorch port: containers, generators and the
-vertex partitions of the multi-GPU strategies."""
+"""Graph substrate of the PyTorch port: containers, generators, the
+vertex partitions of the multi-GPU strategies and the k-hop neighbour
+sampler of minibatch GNN training."""
 from repro_torch.graphs.structures import (
     INF32,
     COOGraph,
@@ -24,6 +25,7 @@ from repro_torch.graphs.generators import (
     square_lattice,
     watts_strogatz,
 )
+from repro_torch.graphs.sampler import sample_khop
 
 __all__ = [
     "INF32",
@@ -44,4 +46,5 @@ __all__ = [
     "grid_map",
     "square_lattice",
     "random_graph",
+    "sample_khop",
 ]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,6 +33,41 @@ def _dense_init(shape, dtype, generator: torch.Generator, device,
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return nn.Parameter((x * scale).to(dtype))
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """An array (bfloat16 ones of ``ml_dtypes`` too: the same bits as
+    torch's) as a tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def load_tree(module: nn.Module, tree, device) -> None:
+    """Set ``module``'s parameters from a reference tree (nested dicts and
+    lists of arrays whose keys and indices are the module's attribute
+    names and ``ModuleList``/``ParameterList`` indices), without
+    gradients."""
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else tree.items())
+    for key, value in items:
+        name = str(key)
+        if isinstance(value, (dict, list, tuple)):
+            load_tree(getattr(module, name) if isinstance(key, str)
+                      else module[key], value, device)
+        else:
+            setattr(module, name, nn.Parameter(
+                tensor_from_numpy(value, device), requires_grad=False))
+
+
+def check_loaded(model: nn.Module) -> None:
+    """Raise where ``load_tree`` left a parameter of a model built on the
+    meta device unset."""
+    missing = [n for n, p in model.named_parameters() if p.is_meta]
+    if missing:
+        raise ValueError(f"the tree has no {missing}")
 
 
 # --------------------------------------------------------------------- norms

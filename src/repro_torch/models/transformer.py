@@ -10,6 +10,14 @@ The reference's sharding constraints are no-ops outside a sharding
 context and the port has none yet (sharding comes with the mesh slice),
 so nothing here constrains a layout.
 
+Training differentiates ``lm_loss`` with autograd. Where gradients are
+recorded, each block runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set (the reference's ``jax.checkpoint`` of its scan
+body), and each loss chunk always does (as the reference's), so the
+backward pass holds no chunk's ``(B, c, V)`` float32 logits but the one
+it recomputes. ``init_lm`` returns a model without gradients (serving);
+the train step turns them on for the parameters it differentiates.
+
 API (``params`` is the ``LM`` module that ``init_lm`` returns):
   init_lm(cfg, generator, device)        → params
   apply_lm(params, cfg, tokens)          → (logits, aux)    # training
@@ -30,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
@@ -37,9 +46,11 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     _dense_init,
     attention_apply,
+    check_loaded,
     init_attention,
     init_mlp,
     init_rms_norm,
+    load_tree,
     mlp_apply,
     rms_norm,
 )
@@ -120,13 +131,25 @@ def _block(cfg: LMConfig, lp, x, idx: int, kv=None, cache_len=None):
     return x + ff, aux, new_kv
 
 
+def _train_block(cfg: LMConfig, lp, x, idx: int):
+    x, aux, _ = _block(cfg, lp, x, idx)
+    return x, aux
+
+
 def _stack_scan(cfg: LMConfig, params, x, cache=None, cache_len=None):
     """The layers in order (and the KV cache's layer slices, if
-    serving)."""
+    serving); with ``cfg.remat``, each block is recomputed in the
+    backward pass where gradients are recorded."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for idx, lp in enumerate(params.layers):
-        kv = None if cache is None else (cache["k"][idx], cache["v"][idx])
-        x, a, _ = _block(cfg, lp, x, idx, kv=kv, cache_len=cache_len)
+        if remat:
+            x, a = checkpoint(_train_block, cfg, lp, x, idx,
+                              use_reentrant=False)
+        else:
+            kv = None if cache is None else (cache["k"][idx],
+                                             cache["v"][idx])
+            x, a, _ = _block(cfg, lp, x, idx, kv=kv, cache_len=cache_len)
         aux = aux + a
     return x, aux
 
@@ -158,10 +181,19 @@ def apply_lm(params, cfg: LMConfig, tokens):
     return _logits(params, cfg, x), aux
 
 
+def _chunk_xent(cfg: LMConfig, x, w, labels):
+    """Summed cross-entropy of one chunk: x (B, c, d), labels (B, c)."""
+    logits = _softcap_logits(cfg, x @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
 def lm_loss(params, cfg: LMConfig, tokens, labels, loss_chunk: int = 512):
     """Next-token cross-entropy over sequence chunks, so the (B, S, V)
-    logits tensor is never whole (the forward value; training comes
-    with the training slice)."""
+    logits tensor is never whole (vocab 256k × 4608 tokens would be 4.7
+    GB in float32); where gradients are recorded, each chunk is
+    recomputed in the backward pass."""
     x = _embed(params, cfg, tokens)
     x, aux = _stack_scan(cfg, params, x)
     x = rms_norm(params.final_norm, x)
@@ -172,12 +204,12 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, loss_chunk: int = 512):
     if s % c:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"loss chunk {c}")
+    grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
-        logits = _softcap_logits(cfg, x[:, i:i + c] @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, i:i + c, None])[..., 0]
-        total = total + (lse - gold).sum()
+        args = (cfg, x[:, i:i + c], w, labels[:, i:i + c])
+        total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False)
+                         if grad else _chunk_xent(*args))
     loss = total / (b * s) + aux
     return loss, {"xent": total / (b * s), "aux": aux}
 
@@ -212,35 +244,16 @@ def decode_step(params, cfg: LMConfig, cache, tokens):
 
 # ------------------------------------------------- weights of the reference
 
-def _tensor(a, device):
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes: same bits as torch's
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
-
-
-def _load(module: nn.Module, tree, device) -> None:
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            _load(getattr(module, key), value, device)
-        else:
-            setattr(module, key, nn.Parameter(_tensor(value, device),
-                                              requires_grad=False))
-
-
 def params_from_jax(cfg: LMConfig, tree, device=None) -> LM:
     """The port's model holding the reference's parameters: ``tree`` is
     ``repro.models.transformer.init_lm``'s tree as numpy arrays, with
     the stacked ``(L, ...)`` layer arrays."""
     dev = resolve_device(device)
     model = LM(cfg, None, "meta")
-    _load(model, {k: v for k, v in tree.items() if k != "layers"}, dev)
+    load_tree(model, {k: v for k, v in tree.items() if k != "layers"}, dev)
     for idx, block in enumerate(model.layers):
-        _load(block, _layer_slice(tree["layers"], idx), dev)
-    missing = [n for n, p in model.named_parameters() if p.is_meta]
-    if missing:
-        raise ValueError(f"the tree has no {missing}")
+        load_tree(block, _layer_slice(tree["layers"], idx), dev)
+    check_loaded(model)
     return model
 
 

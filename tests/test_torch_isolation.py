@@ -8,8 +8,8 @@
 * The parts once refused answer now (the batched queries, the frontier
   policies, dynamic updates, the landmark modes, tuning, the deprecated
   solver shims, the SSSP serving tier, the sharded strategies, sharded
-  serving and LM decode serving are ported); the launcher runs end to
-  end on the CPU with --verify.
+  serving, LM decode serving and training are ported); the launcher
+  runs end to end on the CPU with --verify.
 """
 import ast
 from pathlib import Path
@@ -72,6 +72,18 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/serve/decode.py",
+                 "src/repro_torch/optim/optimizers.py",
+                 "src/repro_torch/distributed/compression.py",
+                 "src/repro_torch/checkpoint/checkpointer.py",
+                 "src/repro_torch/data/synthetic.py",
+                 "src/repro_torch/graphs/sampler.py",
+                 "src/repro_torch/models/embedding.py",
+                 "src/repro_torch/models/gnn.py",
+                 "src/repro_torch/models/dlrm.py",
+                 "src/repro_torch/train/steps.py",
+                 "src/repro_torch/train/trainer.py",
+                 "src/repro_torch/launch/train.py",
+                 "examples/torch_train_lm.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_multi_source_sssp.py",
                  "examples/torch_sssp_gamemap.py", "chip_smoke.py"):
