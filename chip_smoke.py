@@ -55,8 +55,9 @@
    path of that weight, fewer buckets for the near target);
    ``BoundedRadius(1000)`` (the single-source
    answer filtered at 1000); on a 512 x 512 map the grid plan bitwise
-   equal to ``edge`` (dist, pred, buckets, inner_iters); median times
-   of three of each query after warm-up; one profiled solve.
+   equal to ``edge`` (dist, pred, buckets, inner_iters); the median of
+   ``GRID_REPS`` timed runs of each query after warm-up; one profiled
+   solve.
 6. Times: per strategy the median solve wall time of three solves after
    the warm-up, with host synchronisations and counters.
 7. One profiled solve per strategy (``torch.profiler``): device busy
@@ -104,8 +105,8 @@
    sources, 1000 targets, tile 8, ``edge``) equal to the ``MultiSource``
    rows. ``frontier_cap=4096`` on ``ell``, ``pallas`` and ``fused``:
    without fallback the solve reports overflow, launches its kernels by
-   its own counters' equations and answers bitwise as the same plan on
-   the CPU; with ``fallback=True`` it answers as the uncapped plan of
+   its own counters' equations and answers bitwise as the same loop on
+   the CPU (``ell``'s for ``pallas``); with ``fallback=True`` it answers as the uncapped plan of
    phase 3, with ``telemetry.fallback`` and
    ``explain()["fallback_taken"]`` set, and launches what the capped
    solve and the full-width twin's solve launch together. ``rho``
@@ -116,8 +117,9 @@
    game map: ``MultiSource`` of 2 sources on the grid plan, each lane
    equal to its single solve, launches equal to the lanes' equations.
    Wall times (median of 3; one timed run, apart from the counted one,
-   for the lane-by-lane batches, ``ell``'s batch, ``ManyToMany`` and
-   the fallback), host syncs and launches per path. The counters are
+   for the lane-by-lane batches, ``ell``'s batch, ``ManyToMany``, the
+   fallback and, ``POLICY_REPS``, the policies), host syncs and
+   launches per path. The counters are
    set to 0 just before each counted run and read just after; each
    path's launches join ``by_path`` in the kernels line
    (``smallworld_multisource``, ``smallworld_policy``,
@@ -146,11 +148,11 @@
    backend; the ``fused`` twin by ``fused``'s; a twin overflow's
    full-width re-run adds its own). The strategies ``DYN_TIMED``
    (``edge``, ``pallas``) take two warm-up batches before the first
-   counted one and, after it (the first k only), are timed: three more
-   batches (update + warm resolve, split into update, host repair
+   counted one and, after it (the first k only), are timed: ``DYN_REPS``
+   more batches (update + warm resolve, split into update, host repair
    planning, warm backend, device loop and the rest, each part checked
-   to be timed, with host syncs) and three ``resolve(warm=False)``, the
-   first held equal to the warm answer. At the second k only ``edge``
+   to be timed, with host syncs) and ``DYN_REPS``
+   ``resolve(warm=False)``, the first held equal to the warm answer. At the second k only ``edge``
    and ``fused`` (argmin) take a batch, the counted one. The others take
    the counted batches
    only (so after the first k their weights are not ``edge``'s, and
@@ -176,8 +178,8 @@
    the farthest vertex (largest finite distance, lowest id) and to the
    vertex at the median finite distance (lowest id): distance equal to
    scipy's, a valid path of that weight, ``host_syncs == 2 * buckets +
-   inner_iters + 1``, no overflow; wall times (median of 3 after one
-   warm-up to the far target, one run to the near one). One profiled
+   inner_iters + 1``, no overflow; wall times (``LANDMARK_REPS`` runs
+   after one warm-up to the far target, one run to the near one). One profiled
    ``alt`` query: device busy time, idle share and the scatter's share,
    with its records held against ``2 * (buckets + inner_iters) + 1``
    (a compaction and a scatter-min per sweep, one scatter-min in pred
@@ -357,6 +359,28 @@
    lines give the times of forward+backward and of the update, the peak
    memory above the phase's start, the bounds, a profiled train step and
    the card's name and power limit.
+17. The mesh path (run after phase 16; the counters set to 0 just
+   before it and read just after: it launches none of the four kernels,
+   as the reference's LM reaches no Pallas kernel under its mesh
+   either), moonshot-v1-16b-a3b at full width under ``sharding_rules``
+   with the reference EP test's mapping (``MESH_MAPPING``). (a) On a
+   one-rank NCCL mesh, ``MESH_LAYERS`` = 4 layers, ``MESH_BATCH`` x
+   ``MESH_SEQ`` tokens: float32 logits of ``impl="ep"`` (parameters
+   placed by ``lm_param_specs``) against ``impl="dense"`` on plain
+   tensors at capacity factor E / k (no pick dropped), within
+   ``MESH_TOL``; then in bf16 at the config's capacity factor, the
+   forward and the forward+backward of ``lm_loss`` for dense on plain
+   tensors and for dense and EP under the rules (medians of 3), each
+   path's share of dropped picks and its peak memory. (b) In two
+   processes of their own (``chip_smoke.py --mesh-rank RANK 2 DIR``),
+   started first, two gloo ranks sharing the card on a ``(1, 2)`` mesh,
+   ``MESH_RANK_LAYERS`` = 2 layers, float32, 32 experts a rank: logits
+   and the gradient of ``lm_loss`` against the unsharded model's
+   (``MESH_TOL``; each leaf within ``MESH_GRAD_REL`` relative L2), then
+   one AdamW update of that gradient under the rules and its state
+   re-meshed onto
+   ``make_mesh_from([0], (1, 1))``, bitwise. ``[mesh]`` lines give each
+   part's time, peak memory and the card's name and power limit.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -401,6 +425,9 @@ INF = 2**31 - 1
 N_NODES, DEGREE, P_REWIRE, DELTA = 1_000_000, 20, 1e-2, 10
 # the repo's game-map configuration (src/repro/configs/sssp_archs.py:27)
 GRID_SIDE, OBSTACLES, GRID_DELTA, SMALL_SIDE = 3000, 0.1, 13, 512
+# timed runs of each game-map query after its warm-up (three before the
+# mesh phase)
+GRID_REPS = 1
 # sweeps of the warm-up solve whose inputs are kept (light and heavy)
 GRID_PICKS = frozenset({0, 1, 2, 3, 100, 101, 102, 1000, 1001, 1002,
                         3000, 3001, 3002, 6000, 6001, 6002})
@@ -413,11 +440,18 @@ BATCH_SOURCES = (0, 131_071, 262_147, 393_209, 524_287, 655_357, 786_431,
 M2M_SOURCES = BATCH_SOURCES + (65_537, 196_613, 327_673, 458_747, 589_811,
                                720_887, 851_957, 999_999)
 M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
+# the timed runs of each policy solve (three before the mesh phase); the
+# CPU plan whose capped answer each capped strategy's must equal
+POLICY_REPS = 1
+HOST_KIND = {"ell": "ell", "pallas": "ell", "fused": "fused"}
 ELL_BATCH = 4                  # ell's MultiSource: the first 4 sources
 SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
 # phase 9: 0.1 % and 1 % of |E| per batch, two id sets per k (bench
 # protocol), the strategies timed, and the lattice
 DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
+# timed batches and cold re-solves of each DYN_TIMED plan (three before
+# the mesh phase)
+DYN_REPS = 1
 DYN_TIMED = ("edge", "pallas")
 # the plans that also take the second k (edge: the oracle; fused: the
 # kernel path)
@@ -426,6 +460,9 @@ LATTICE_SIDE, LATTICE_STRATEGIES = 400, ("edge", "pallas", "fused")
 # phase 10: landmarks per plan, the update batch size (phase 9's
 # protocol), the point-to-point modes
 LANDMARK_K, LM_DYN_K = 4, 20_000
+# timed queries to the far target, after a warm-up (three before the
+# mesh phase)
+LANDMARK_REPS = 1
 LM_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
 # phase 11: the search's axes (with the estimator's Δ grid and both cap
 # fractions); phase 12: lanes, resident plans, the requests of the mix
@@ -476,6 +513,22 @@ TR_DLRM_CAP, TR_DLRM_BATCH, TR_SMALL_STEPS = 2**20, 2048, 5
 TR_LIMIT_S = 300
 # H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12
+# phase 17: moonshot-v1-16b-a3b at full width under the reference EP
+# test's mapping (tests/test_models_extra.py); (a) MESH_LAYERS layers on
+# a one-rank NCCL mesh, MESH_BATCH x MESH_SEQ tokens, 512-token loss
+# chunks; (b) MESH_RANK_LAYERS layers on two gloo ranks sharing the card
+# (32 experts a rank), MESH_RANK_BATCH x MESH_RANK_SEQ tokens; the
+# tolerances (PERF.md §6): float32 logits, EP against dense
+# (tests/test_models_extra.py:97), and each gradient leaf's relative L2
+# error; the children's time limit
+MESH_ARCH, MESH_LAYERS = "moonshot-v1-16b-a3b", 4
+MESH_BATCH, MESH_SEQ = 2, 1024
+MESH_RANK_LAYERS, MESH_RANK_BATCH, MESH_RANK_SEQ = 2, 2, 256
+MESH_CHUNK, MESH_TOL, MESH_GRAD_REL = 512, 2e-3, 1e-3
+MESH_MAPPING = {"dp": ("pod", "data"), "fsdp": ("pod", "data"),
+                "tp": "model", "sp": "model", "ep_cap": ("pod", "data"),
+                "act_seq": "model"}
+MESH_LIMIT_S = 300
 
 
 def check(cond, what: str) -> None:
@@ -922,13 +975,14 @@ def game_map_path(torch, np, cuda, counters):
     for name, q in [("SingleSource", SingleSource(src))] + list(
             queries.items()):
         walls = []
-        for _ in range(3):
+        for _ in range(GRID_REPS):
             t0 = time.perf_counter()
             a = plan.solve(q)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         log(f"[time] gamemap/{name}: median "
-            f"{statistics.median(walls) * 1e3:.1f} ms over 3 after warm-up "
+            f"{statistics.median(walls) * 1e3:.1f} ms over {GRID_REPS} after "
+            "warm-up "
             f"({', '.join(f'{x * 1e3:.1f}' for x in walls)}), host_syncs="
             f"{plan.host_syncs}, buckets={a.telemetry.buckets}, "
             f"inner_iters={a.telemetry.inner_iters}")
@@ -1233,8 +1287,9 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
     # to its launch equations (the fallback's: the capped solve's plus the
     # full-width twin's); the capped solves keep each kernel's largest
     # input (fidx of CAP rows), and each capped answer on the card must
-    # equal the same plan's on the CPU
+    # equal the same loop's on the CPU (ell's for pallas)
     capped = Largest(backends, frontier_sizes(g.n_nodes, SW_KERNELS))
+    host_capped = {}
     launches_fb = dict.fromkeys(counters, 0)      # the capped solves
     launches_twin = dict.fromkeys(counters, 0)    # the twins' re-solves
     for st in ("ell", "pallas", "fused"):
@@ -1252,8 +1307,13 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         check(got_raw == delta_launches(st, rt.buckets, rt.inner_iters),
               f"{st} cap {CAP}: launches {got_raw} off the capped solve's "
               "equations")
+        # the CPU's capped answer: ell's and pallas's are one answer (the
+        # same loop, buckets and sweeps), computed once
         t0 = time.perf_counter()
-        host = Engine(g, cfg, device="cpu").plan().solve(SingleSource(0))
+        if HOST_KIND[st] not in host_capped:
+            host_capped[HOST_KIND[st]] = Engine(
+                g, cfg, device="cpu").plan().solve(SingleSource(0))
+        host = host_capped[HOST_KIND[st]]
         cpu_s = time.perf_counter() - t0
         ht = host.telemetry
         check(torch.equal(raw.dist.cpu(), host.dist)
@@ -1321,7 +1381,8 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
                 for k, v in got.items():
                     launches_policy[k] += v
             syncs = plan.host_syncs
-            _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)), 3)
+            _, walls = walls_ms(torch, lambda: plan.solve(SingleSource(0)),
+                                POLICY_REPS)
             log(f"[policy] {st}/{policy}"
                 f"{'' if policy == 'rho' else f' k={RADIUS_K}'}: dist/pred "
                 f"== delta, rounds={t.buckets} steps={t.inner_iters} "
@@ -1531,10 +1592,10 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
     for k in DYN_KS:
         seq = cycles[k]
         first = k == DYN_KS[0]
-        # the first k: two warm-up batches, the counted one, then three
-        # timed (DYN_TIMED only); the second k: the counted one
+        # the first k: two warm-up batches, the counted one, then
+        # DYN_REPS timed (DYN_TIMED only); the second k: the counted one
         warmups, counted_b = (seq[:2], seq[2]) if first else ([], seq[0])
-        timed_b = [seq[3], seq[0], seq[1]]
+        timed_b = [seq[3], seq[0], seq[1]][:DYN_REPS]
         oracle = None
         refs = []       # (weights, warm answer, plan) of this k, per weights
         for key in keys if first else DYN_WIDE:
@@ -1596,10 +1657,10 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
                 f"{split.ms['planning']:.1f}, warm backend "
                 f"{split.ms['twin']:.1f}, loop {split.ms['loop']:.1f} ms")
             if timed:
-                # timed: three cold re-solves (the first held to the warm
-                # answer), then three batches after the counted one
+                # timed: DYN_REPS cold re-solves (the first held to the
+                # warm answer), then DYN_REPS batches after the counted one
                 cold, walls = walls_ms(
-                    torch, lambda: plan.resolve(warm=False), 3)
+                    torch, lambda: plan.resolve(warm=False), DYN_REPS)
                 check(same_answer(cold, res) and not cold.telemetry.warm,
                       f"{st}/{pm} k={k}: resolve(warm=False) differs")
                 log(f"[time] dyn {st}/{pm} k={k}: "
@@ -1812,7 +1873,7 @@ def landmark_path(torch, np, cuda, g, ref_dist, keyed, counters):
             if name == "far":
                 plan.solve(q)                   # warm-up
             r, w = walls_ms(torch, lambda: plan.solve(q),
-                            3 if name == "far" else 1)
+                            LANDMARK_REPS if name == "far" else 1)
             tel = r.telemetry
             check(r.distance == int(ref_dist[t]),
                   f"{mode} 0->{t}: distance {r.distance} != scipy")
@@ -3798,6 +3859,408 @@ def small_run(torch, np, model, loss_fn, batch_at, lr, what, smi, timed,
         f"{', '.join(f'{v:.1f}' for v in ms)} ms; {smi}")
 
 
+# -- phase 17: the mesh path -------------------------------------------------
+
+def mesh_variant(dataclasses, cfg, layers: int, impl: str, cf: float,
+                 dtype: str):
+    """``cfg`` cut to ``layers`` layers, its MoE at ``impl`` and capacity
+    factor ``cf``, parameters and activations in ``dtype``."""
+    return dataclasses.replace(
+        cfg, n_layers=layers, dtype=dtype, param_dtype=dtype,
+        moe=dataclasses.replace(cfg.moe, impl=impl, capacity_factor=cf))
+
+
+def drop_log(moe_lib, shares: list):
+    """``moe_lib.moe_apply`` and a wrapper of it that appends, per call,
+    the share of (token, choice) picks past their expert's capacity over
+    the call's whole token block (the expert-parallel region's block on
+    a mesh whose data dim is 1) to ``shares``."""
+    from repro_torch.models.sharding import full
+    real = moe_lib.moe_apply
+
+    def wrapped(p, cfg, x):
+        xt = full(x).detach()
+        *_, cap, slot = moe_lib.route(p, cfg, xt.reshape(-1, xt.shape[-1]))
+        shares.append(float((slot >= cap).float().mean()))
+        return real(p, cfg, x)
+    return real, wrapped
+
+
+def gloo_cuda_all_gather(torch, tdist):
+    """On the card's torch (2.11, CUDA 12.8) the functional all-gather
+    that DTensor's redistributions call dies (SIGSEGV) on a gloo group
+    with CUDA tensors, where the c10d call does not (PERF.md §6):
+    in this process the CUDA kernel of
+    ``_c10d_functional::all_gather_into_tensor`` is the c10d call. The
+    returned library must stay alive."""
+    from torch.distributed import distributed_c10d as c10d
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def all_gather(inp, group_size, group_name):
+        out = inp.new_empty((group_size * inp.shape[0],)
+                            + tuple(inp.shape[1:]))
+        tdist.all_gather_into_tensor(
+            out, inp.contiguous(),
+            group=c10d._resolve_process_group(group_name))
+        return out
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    return lib
+
+
+def bits_checksum(torch, t):
+    """A 64-bit checksum of a float32 tensor's bits: each element's bits
+    times an odd weight of its position, summed mod 2**64, so that any
+    one flipped bit changes it."""
+    bits = t.contiguous().view(torch.int32).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 24
+    for i in range(0, bits.numel(), step):
+        part = bits[i:i + step].long()
+        weight = torch.arange(2 * i + 1, 2 * (i + part.numel()), 2,
+                              dtype=torch.int64, device=t.device)
+        total += (part * weight).sum()
+    return total
+
+
+def mesh_rank(rank: int, world: int, work: str, device=None) -> int:
+    """Phase 17(b): one of two gloo ranks sharing the card (``chip_smoke.py
+    --mesh-rank RANK WORLD DIR``). moonshot-v1-16b-a3b at full width,
+    ``MESH_RANK_LAYERS`` layers, float32, seeded on the card (the same
+    weights on both ranks), its MoE layers at capacity factor E / k (no
+    pick dropped): rank 0 computes the unsharded model's logits and the
+    gradient of ``lm_loss``; then both place the parameters by
+    ``lm_param_specs`` on a ``(1, world)`` mesh and run the same under
+    ``sharding_rules`` (``impl="ep"``, E / world experts a rank); rank 0
+    holds them to the unsharded ones (``MESH_TOL``, ``MESH_GRAD_REL``).
+    Then one AdamW update of those gradients under the rules, its state
+    re-meshed onto ``make_mesh_from([0], (1, 1))``, bitwise."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.distributed import make_mesh_from, remesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param_sharding import (distribute, lm_param_specs,
+                                                   state_specs_like,
+                                                   tree_to_mesh)
+    from repro_torch.models.sharding import full, sharding_rules
+    from repro_torch.optim import adamw
+
+    cuda = torch.device("cuda", 0) if device is None else device
+    on_card = cuda.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(cuda)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{work}/mesh_store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_LIMIT_S))
+    lib = gloo_cuda_all_gather(torch, tdist) if on_card else None
+    times = {}
+
+    def timed(part, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[part] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def say(*args):
+        if rank == 0:
+            log("[mesh] (b)", *args)
+
+    try:
+        base = configs.get_config(MESH_ARCH)
+        e, k = base.moe.n_experts, base.moe.top_k
+        cfg_d = mesh_variant(dataclasses, base, MESH_RANK_LAYERS, "dense",
+                             e / k, "float32")
+        cfg_e = dataclasses.replace(cfg_d, moe=dataclasses.replace(
+            cfg_d.moe, impl="ep"))
+        gen = torch.Generator(device=cuda)
+        model = tf.init_lm(cfg_d, gen.manual_seed(0), cuda)
+        toks = torch.randint(0, base.vocab, (MESH_RANK_BATCH, MESH_RANK_SEQ),
+                             generator=gen.manual_seed(1), device=cuda)
+        params = dict(model.named_parameters())
+
+        def loss_grads(cfg):
+            for p in params.values():
+                p.requires_grad_(True)
+            loss, _ = tf.lm_loss(model, cfg, toks, toks,
+                                 loss_chunk=MESH_CHUNK)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            for p in params.values():
+                p.requires_grad_(False)
+            return loss.detach(), dict(zip(params, grads))
+
+        if rank == 0:
+            with torch.no_grad():
+                ref_logits = timed("unsharded forward",
+                                   lambda: tf.apply_lm(model, cfg_d, toks)[0])
+            ref_loss, ref = timed("unsharded forward+backward",
+                                  lambda: loss_grads(cfg_d))
+            ref = {n: g.cpu() for n, g in ref.items()}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh_from(list(range(world)), (1, world),
+                              device_type=cuda.type)
+        distribute(model, lm_param_specs(model), mesh, MESH_MAPPING)
+        params = dict(model.named_parameters())
+        with sharding_rules(mesh, MESH_MAPPING):
+            with torch.no_grad():
+                logits = timed("forward", lambda: full(
+                    tf.apply_lm(model, cfg_e, toks)[0]))
+            loss, grads = timed("forward+backward", lambda: loss_grads(cfg_e))
+            whole = {n: full(g) for n, g in grads.items()}
+        if rank == 0:
+            err = float((logits - ref_logits).abs().max())
+            check(err <= MESH_TOL, f"(b) logits {err} from the unsharded "
+                  f"model's, past {MESH_TOL}")
+            def rel_err(g, r):
+                r = r.to(cuda)
+                return float((g - r).norm() / r.norm())
+
+            rel = {n: rel_err(g, ref[n]) for n, g in whole.items()}
+            worst = max(rel, key=rel.get)
+            check(rel[worst] <= MESH_GRAD_REL, f"(b) gradient {worst} "
+                  f"{rel[worst]} from the unsharded one, past "
+                  f"{MESH_GRAD_REL}")
+            say(f"{MESH_ARCH} at full width, {MESH_RANK_LAYERS} layers, "
+                f"float32, {MESH_RANK_BATCH}x{MESH_RANK_SEQ} tokens on a "
+                f"(1, {world}) gloo mesh ({e // world} experts a rank): "
+                f"logits within {err:.3e} of the unsharded model's (tolerance"
+                f" {MESH_TOL}); loss {float(full(loss)):.6f} against "
+                f"{float(ref_loss):.6f}; gradient worst leaf {worst} "
+                f"{rel[worst]:.3e} relative L2 (tolerance {MESH_GRAD_REL}),"
+                f" median {statistics.median(rel.values()):.3e}")
+        del whole, logits
+        opt = adamw(1e-3)
+        with sharding_rules(mesh, MESH_MAPPING):
+            _, state = timed("AdamW update", lambda: opt.update(
+                grads, opt.init(params), params))
+        del grads
+        # the old blocks stay where they lie: rank 0 holds its own to the
+        # re-meshed tensors element by element, the others' reach it as
+        # checksums of their bits
+        old = [(key, n, v) for key in ("m", "v")
+               for n, v in state[key].items()]
+        sums = torch.stack([bits_checksum(torch, v.to_local())
+                            for _, _, v in old])
+        all_sums = [torch.empty_like(sums) for _ in range(world)]
+        tdist.all_gather(all_sums, sums)
+        new_mesh = make_mesh_from([0], (1, 1), device_type=cuda.type)
+        specs = tree_to_mesh(state_specs_like(lm_param_specs(model), state),
+                             new_mesh, MESH_MAPPING)
+        moved = timed("remesh", lambda: remesh(state, specs, new_mesh))
+        if rank == 0:
+            n_el = 0
+            for i, (key, n, v) in enumerate(old):
+                new = moved[key][n].to_local()
+                split = v.placements[-1]
+                parts = (torch.chunk(new, world, dim=split.dim)
+                         if split.is_shard() else [new] * world)
+                check(torch.equal(parts[0], v.to_local()),
+                      f"(b) remesh changed {key} {n} (rank 0's block)")
+                for r in range(1, world):
+                    check(int(bits_checksum(torch, parts[r]))
+                          == int(all_sums[r][i]),
+                          f"(b) remesh changed {key} {n} (rank {r}'s block)")
+                n_el += new.numel()
+            check(int(full(moved["step"])) == 1, "(b) remesh: step")
+            say(f"AdamW state ({n_el} float32 moment values) re-meshed from "
+                f"(1, {world}) onto make_mesh_from([0], (1, 1)): bitwise "
+                f"equal (rank 0's blocks element by element, rank 1's by a "
+                f"position-weighted 64-bit checksum of their bits)")
+        else:
+            check(all(v is None for v in moved["m"].values()),
+                  "(b) remesh: a rank outside the new mesh holds state")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        say("times: " + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+            + f"; rank 0's peak {peak:.2f} GB after the unsharded part")
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+        del lib
+    return 0
+
+
+def mesh_path(torch, np, cuda, counters, smi) -> None:
+    """Phase 17: the mesh path on the card (module note)."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    # (b) in processes of their own, started first: their start-up overlaps
+    # part (a)
+    work = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ranks = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "2", work.name], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        mesh_one_rank(torch, np, cuda, smi)
+        outs = []
+        for proc in ranks:
+            out, _ = proc.communicate(timeout=max(
+                1.0, MESH_LIMIT_S - (time.perf_counter() - t_phase)))
+            outs.append(out)
+            check(proc.returncode == 0, f"a mesh rank failed (exit "
+                  f"{proc.returncode}):\n{out[-4000:]}")
+    finally:
+        for proc in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        work.cleanup()
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("[mesh]")]
+    check(len(lines) == 3, f"rank 0 printed no result:\n{outs[0][-2000:]}")
+    for line in lines:
+        log(line)
+    log(f"[mesh] (b) the two ranks were done "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase; {smi}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the mesh path launched an SSSP kernel: {launches}")
+    log(f"[mesh] launches over phase 17: {json.dumps(launches)} (the mesh "
+        "path reaches no Pallas kernel in the reference and none here)")
+    log(f"[mesh] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_one_rank(torch, np, cuda, smi) -> None:
+    """Phase 17(a): moonshot-v1-16b-a3b at full width, ``MESH_LAYERS``
+    layers, on a one-rank NCCL mesh (module note)."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param_sharding import distribute, lm_param_specs
+    from repro_torch.models.sharding import full, sharding_rules
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=cuda)
+    base = configs.get_config(MESH_ARCH)
+    e, k = base.moe.n_experts, base.moe.top_k
+    toks = torch.randint(0, base.vocab, (MESH_BATCH, MESH_SEQ),
+                         generator=gen.manual_seed(1), device=cuda)
+    group_dir = tempfile.TemporaryDirectory()
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(Path(group_dir.name) / "store"), 1), rank=0, world_size=1,
+        device_id=cuda)
+    try:
+        mesh = make_host_mesh(1, 1)
+        # float32, capacity factor E / k: neither path drops a pick
+        t0 = time.perf_counter()
+        cfg_d = mesh_variant(dataclasses, base, MESH_LAYERS, "dense", e / k,
+                             "float32")
+        cfg_e = mesh_variant(dataclasses, base, MESH_LAYERS, "ep", e / k,
+                             "float32")
+        model = tf.init_lm(cfg_d, gen.manual_seed(0), cuda)
+        with torch.no_grad():
+            dense = tf.apply_lm(model, cfg_d, toks)[0]
+            distribute(model, lm_param_specs(model), mesh, MESH_MAPPING)
+            with sharding_rules(mesh, MESH_MAPPING):
+                ep = full(tf.apply_lm(model, cfg_e, toks)[0])
+        err = float((ep - dense).abs().max())
+        check(bool(torch.isfinite(ep).all()) and ep.shape == dense.shape,
+              "(a) EP logits")
+        check(err <= MESH_TOL, f"(a) EP logits {err} from dense, past "
+              f"{MESH_TOL}")
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[mesh] (a) {MESH_ARCH} at full width ({e} experts, top-{k}, "
+            f"d_ff_expert {base.moe.d_ff_expert}, d {base.d_model}, vocab "
+            f"{base.vocab}), {MESH_LAYERS} of {base.n_layers} layers "
+            f"({n_params} parameters), float32, {MESH_BATCH}x{MESH_SEQ} "
+            f"tokens, capacity factor E/k = {e / k:.3f}: impl=\"ep\" under "
+            f"sharding_rules on a one-rank NCCL mesh within {err:.3e} max abs"
+            f" of impl=\"dense\" (tolerance {MESH_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del model, ep, dense
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bf16 at the config's capacity factor: times and dropped picks
+        cfgs = {impl: mesh_variant(dataclasses, base, MESH_LAYERS, impl,
+                                   base.moe.capacity_factor, "bfloat16")
+                for impl in ("ep", "dense")}
+        model = tf.init_lm(cfgs["dense"], gen.manual_seed(0), cuda)
+        params = dict(model.named_parameters())
+
+        def forward(cfg):
+            with torch.no_grad():
+                return tf.lm_loss(model, cfg, toks, toks,
+                                  loss_chunk=MESH_CHUNK)[0]
+
+        def fwd_bwd(cfg):
+            for p in params.values():
+                p.requires_grad_(True)
+            loss, _ = tf.lm_loss(model, cfg, toks, toks,
+                                 loss_chunk=MESH_CHUNK)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            for p in params.values():
+                p.requires_grad_(False)
+            return loss, grads
+
+        def ms3(fn):
+            fn()
+            walls = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        def drops(cfg):
+            shares = []
+            real, wrapped = drop_log(moe_lib, shares)
+            moe_lib.moe_apply = wrapped
+            try:
+                forward(cfg)
+            finally:
+                moe_lib.moe_apply = real
+            return sum(shares) / len(shares)
+
+        rows = {}
+        torch.cuda.reset_peak_memory_stats()
+        rows["dense, plain tensors"] = (
+            ms3(lambda: forward(cfgs["dense"])),
+            ms3(lambda: fwd_bwd(cfgs["dense"])), drops(cfgs["dense"]),
+            torch.cuda.max_memory_allocated() / 1e9)
+        distribute(model, lm_param_specs(model), mesh, MESH_MAPPING)
+        params = dict(model.named_parameters())
+        with sharding_rules(mesh, MESH_MAPPING):
+            for impl in ("dense", "ep"):
+                torch.cuda.reset_peak_memory_stats()
+                rows[f"{impl} under the rules"] = (
+                    ms3(lambda: forward(cfgs[impl])),
+                    ms3(lambda: fwd_bwd(cfgs[impl])), drops(cfgs[impl]),
+                    torch.cuda.max_memory_allocated() / 1e9)
+        for name, (f_ms, fb_ms, share, peak) in rows.items():
+            log(f"[mesh] (a) bf16, capacity factor "
+                f"{base.moe.capacity_factor}, lm_loss, {name}: forward "
+                f"{f_ms:.1f} ms, forward+backward {fb_ms:.1f} ms (medians of"
+                f" 3 after a warm-up), dropped picks {share:.4f} of the "
+                f"layers' (token, choice) pairs, peak {peak:.2f} GB; {smi}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+        group_dir.cleanup()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4221,6 +4684,9 @@ def main() -> int:
     # -- 16. training (launches no SSSP kernel) -----------------------------
     training_path(torch, np, cuda, counters, smi)
 
+    # -- 17. the mesh path (launches no SSSP kernel) ------------------------
+    mesh_path(torch, np, cuda, counters, smi)
+
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
 
@@ -4402,4 +4868,6 @@ if __name__ == "__main__":
                                     sys.argv[4]))
     if sys.argv[1:2] == ["--train-restart"]:
         sys.exit(train_restart(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -8,8 +8,9 @@ Parameters live in an ``nn.Module`` with the reference's tree keys
 (``bot.<i>.w``, ``tables.<i>``, ``top.<i>.b``). Tables hold their rows
 padded up to a multiple of 512, as the reference's; a lookup clamps its
 ids into the padded table (the reference's ``take(mode="clip")``). The
-reference's sharding constraints are no-ops outside a sharding context,
-and the port has none yet (the mesh slice).
+reference's sharding constraints sit where its own do
+(``models/sharding.py``); outside a sharding context each returns its
+argument itself.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.configs.base import DLRMConfig, _torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import _mlp, _mlp_init
 from repro_torch.models.layers import check_loaded, load_tree
+from repro_torch.models.sharding import constrain
 
 
 class DLRM(nn.Module):
@@ -38,7 +40,8 @@ class DLRM(nn.Module):
             rows = -(-v // 512) * 512
             t = torch.rand((rows, cfg.embed_dim), generator=generator,
                            device=device, dtype=torch.float32)
-            tables.append(nn.Parameter((t * (2 * scale) - scale).to(dt)))
+            tables.append(nn.Parameter(constrain(
+                (t * (2 * scale) - scale).to(dt), "fsdp", "tp")))
         self.tables = nn.ParameterList(tables)
         n_feat = 1 + cfg.n_sparse                   # bottom out + embeddings
         d_inter = cfg.embed_dim + n_feat * (n_feat - 1) // 2
@@ -75,6 +78,7 @@ def apply_dlrm(params, cfg: DLRMConfig, dense, sparse_ids):
     x0 = _mlp(params.bot, dense, final_act=True)          # (B, D)
     embs = [_lookup(t, sparse_ids[:, i]) for i, t in enumerate(params.tables)]
     feats = torch.stack([x0] + embs, dim=1)               # (B, F, D)
+    feats = constrain(feats, "dp", None, None)
     z = _interact_dot(feats)
     return _mlp(params.top, z)[:, 0]
 
@@ -95,7 +99,9 @@ def retrieval_score(params, cfg: DLRMConfig, dense, sparse_ids,
     x0 = _mlp(params.bot, dense, final_act=True)
     embs = [_lookup(t, sparse_ids[:, i]) for i, t in enumerate(params.tables)]
     q = x0 + sum(embs)                                    # (B, D) query vec
+    q = constrain(q, "dp", None)
     scores = q @ candidate_table.T                        # (B, N_cand)
+    scores = constrain(scores, "dp", "tp")
     return torch.topk(scores, top_k)
 
 

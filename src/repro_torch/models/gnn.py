@@ -9,8 +9,8 @@ edges use src == dst == n (rows gather zeros, scatters drop them).
 Parameters live in ``nn.Module``s whose attribute names and list
 indices are the reference's parameter-tree keys (``layers.0.mlp.1.w``);
 every ``apply_*`` is a plain function over them. The reference's
-sharding constraints are no-ops outside a sharding context and the port
-has none yet (the mesh slice), so nothing here constrains a layout.
+sharding constraints sit where its own do (``models/sharding.py``);
+outside a sharding context each returns its argument itself.
 
 API: ``init_gnn(cfg, generator, device)``, ``apply_gnn(params, cfg,
 inputs)``, ``gnn_loss(params, cfg, inputs, labels, label_mask)``,
@@ -28,6 +28,7 @@ from repro_torch.configs.base import GNNConfig, _torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models.embedding import segment_max, segment_sum, take_fill
 from repro_torch.models.layers import _dense_init, check_loaded, load_tree
+from repro_torch.models.sharding import constrain
 
 
 class Dense(nn.Module):
@@ -77,6 +78,7 @@ def apply_gin(params, cfg: GNNConfig, x, src, dst):
     for lp in params.layers:
         agg = segment_sum(take_fill(x, src), dst, n)      # sum aggregator
         x = _mlp(lp.mlp, (1.0 + lp.eps) * x + agg)
+        x = constrain(x, "tp", None)
     return _mlp(params.readout, x)
 
 
@@ -109,11 +111,13 @@ def apply_gatedgcn(params, cfg: GNNConfig, x, src, dst, e_feat=None):
     for lp in params.layers:
         hi, hj = take_fill(h, dst), take_fill(h, src)
         e = e + hi @ lp.A + hj @ lp.B                     # edge update
+        e = constrain(e, "nodes", None)
         gate = torch.sigmoid(e)
         msg = gate * (hj @ lp.V)
         denom = segment_sum(gate, dst, n) + 1e-6
         h_new = h @ lp.U + segment_sum(msg, dst, n) / denom
         h = F.relu(h_new) + h                             # residual
+        h = constrain(h, "nodes", None)
     return _mlp(params.readout, h)
 
 
@@ -168,6 +172,7 @@ def apply_gat(params, cfg: GNNConfig, x, src, dst):
             h = F.elu(out.reshape(n, hh * d_out))
         else:
             h = out.mean(dim=1)                           # avg heads
+        h = constrain(h, "tp", None)
     return h
 
 
@@ -223,6 +228,7 @@ def apply_schnet(params, cfg: GNNConfig, atom_z, pos, src, dst):
         m = take_fill(h @ lp.w_in, src) * w               # cfconv messages
         agg = segment_sum(m, dst, n)
         h = h + _mlp(lp.w_out, agg, act=_ssp)
+        h = constrain(h, "tp", None)
     return _mlp(params.readout, h, act=_ssp)
 
 

@@ -7,8 +7,9 @@ reference's parameter-tree keys (``wq``, ``w_gate``, ...); every layer is
 a plain function ``f(params, x, ...) -> y`` over them, as in the
 reference. Products and attention are plain ``torch`` matmuls and
 einsums with the reference's precision choices (scores and softmax in
-float32). Sharding comes with the mesh slice of the port; nothing here
-constrains a layout.
+float32). The reference's sharding constraints sit where its own do
+(``models/sharding.py``); outside a sharding context each returns its
+argument itself.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding import constrain, local_blocks
 
 # ----------------------------------------------------------------- init utils
 
@@ -155,24 +159,35 @@ def gqa_attention(q, k, v, *, q_offset: int, causal: bool = True,
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
         return out.to(q.dtype).reshape(b, 1, h, dh)
     if g > 1:
-        kf = kf.repeat_interleave(g, dim=2)
-        vf = vf.repeat_interleave(g, dim=2)
+        kf = constrain(kf.repeat_interleave(g, dim=2), "dp", None, "tp", None)
+        vf = constrain(vf.repeat_interleave(g, dim=2), "dp", None, "tp", None)
 
-    def block(q_blk, off: int):
-        # q_blk: (B, c, H, Dh)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), kf) * scale
-        scores = _softcap(scores, softcap)
-        qpos = off + torch.arange(q_blk.shape[1], device=q.device)[:, None]
-        mask = _mask(qpos, t, q.device, causal=causal, window=window,
-                     kv_len=kv_len)
-        scores = scores.masked_fill(~mask, -1e30)
-        p = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    def attend(q, kf, vf):
+        def block(q_blk, off: int):
+            # q_blk: (B, c, H, Dh)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), kf) \
+                * scale
+            scores = _softcap(scores, softcap)
+            qpos = off + torch.arange(q_blk.shape[1],
+                                      device=q.device)[:, None]
+            mask = _mask(qpos, t, q.device, causal=causal, window=window,
+                         kv_len=kv_len)
+            scores = scores.masked_fill(~mask, -1e30)
+            p = torch.softmax(scores, dim=-1)
+            return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
-    if chunk is None or chunk >= s or s % chunk != 0:
-        return block(q, q_offset)
-    return torch.cat([block(q[:, i:i + chunk], q_offset + i)
-                      for i in range(0, s, chunk)], dim=1)
+        if chunk is None or chunk >= s or s % chunk != 0:
+            return block(q, q_offset)
+        return torch.cat([block(q[:, i:i + chunk], q_offset + i)
+                          for i in range(0, s, chunk)], dim=1)
+
+    if not isinstance(q, DTensor):
+        return attend(q, kf, vf)
+    # under sharding rules each rank attends over its own block of batch
+    # rows and heads, on local tensors (DTensor cannot fold head-sharded
+    # scores into a batched product)
+    (q, kf, vf), back = local_blocks(q, kf, vf)
+    return back(attend(q, kf, vf))
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -245,6 +260,9 @@ def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
     q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
     k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
     v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
     positions = offset + torch.arange(s, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)

@@ -13,10 +13,9 @@ Tokens overflowing an expert's capacity
 ``max(1, int(T * k / E * capacity_factor))`` are dropped (their gate
 weight contributes nothing). In decode ``T`` is the slot count.
 
-``impl="ep"`` takes the reference's expert-parallel path only inside a
-sharding context; the port has no sharding context yet (expert
-parallelism comes with the mesh slice), so every config takes the dense
-path here, as the reference does outside one.
+``impl="ep"`` takes the expert-parallel region (``models/moe_ep.py``)
+inside a sharding context and the dense formulation outside one, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +23,12 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import _act, _dense_init
+from repro_torch.models.sharding import (
+    as_dtensor,
+    constrain,
+    current_mesh,
+    full,
+)
 
 
 class SharedExperts(nn.Module):
@@ -67,7 +72,7 @@ def route(p, cfg, xt):
     t = xt.shape[0]
     e, k = m.n_experts, m.top_k
     tk = t * k
-    logits = (xt @ p.router.to(xt.dtype)).float()
+    logits = (xt @ full(p.router).to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     # top-k with equal probabilities in index order, as lax.top_k (a
     # stable descending sort; torch.topk leaves the order of ties open)
@@ -89,12 +94,30 @@ def route(p, cfg, xt):
 
 
 def moe_apply(p, cfg, x):
-    """x: (B, S, d) → (out (B, S, d), aux_loss scalar), the dense
-    formulation."""
+    """x: (B, S, d) → (out (B, S, d), aux_loss scalar). Takes the
+    explicit expert-parallel region when configured and a sharding
+    context is active; the dense formulation otherwise."""
     m = cfg.moe
+    if m.impl == "ep" and current_mesh() is not None:
+        from repro_torch.models.moe_ep import moe_apply_ep
+        out, aux = moe_apply_ep(p, cfg, x)
+        if m.n_shared_experts:
+            sp = p.shared
+            act = _act(cfg.mlp)
+            # the whole sequence into the products and out of them
+            # (transformer.whole_seq)
+            xs = constrain(x, "dp", None, None)
+            out = out + constrain(
+                (act(xs @ sp.w_gate) * (xs @ sp.w_up)) @ sp.w_down, "dp",
+                None, None)
+        return out, aux
+    # Under sharding rules the routing, the dispatch gather and the
+    # combine run on the whole token block on every rank (DTensor has no
+    # sharding rule for sort, bincount or searchsorted); the expert
+    # products run on DTensors between the constraints.
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = full(x).reshape(t, d)
     e, k = m.n_experts, m.top_k
     tk = t * k
     probs, gate, ids_flat, order, counts, starts, cap, slot = route(
@@ -111,13 +134,17 @@ def moe_apply(p, cfg, x):
     pair = order[torch.clamp(slot_idx, 0, tk - 1)]                 # (E, C)
     disp = xt[pair // k]                                           # (E, C, d)
     disp = torch.where(valid[..., None], disp, 0)
+    disp = constrain(disp, "tp", "ep_cap", None)
 
     act = _act(cfg.mlp)
     h = act(torch.einsum("ecd,edf->ecf", disp, p.w_gate)) \
         * torch.einsum("ecd,edf->ecf", disp, p.w_up)
+    h = constrain(h, "tp", "ep_cap", None)
     out_e = torch.einsum("ecf,efd->ecd", h, p.w_down)              # (E, C, d)
+    out_e = constrain(out_e, "tp", "ep_cap", None)
 
     # --- combine: gather every (token, choice)'s expert output --------
+    out_e = full(out_e)
     gathered = out_e[ids_flat, torch.clamp(slot, 0, cap - 1)]      # (TK, d)
     gathered = torch.where((slot < cap)[:, None], gathered, 0)
     w_flat = gate.reshape(-1, 1).to(x.dtype)
@@ -125,6 +152,10 @@ def moe_apply(p, cfg, x):
 
     if m.n_shared_experts:
         sp = p.shared
-        hs = act(xt @ sp.w_gate) * (xt @ sp.w_up)
-        out = out + hs @ sp.w_down
-    return out.reshape(b, s, d), aux
+        hs = act(xt @ full(sp.w_gate)) * (xt @ full(sp.w_up))
+        out = out + hs @ full(sp.w_down)
+    out = out.reshape(b, s, d)
+    mesh = current_mesh()
+    if mesh is None:
+        return out, aux
+    return as_dtensor(out, mesh), as_dtensor(aux, mesh)

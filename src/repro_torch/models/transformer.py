@@ -6,9 +6,12 @@ are instances of this one module.
 
 The reference scans stacked ``(L, ...)`` layer parameters; here the
 layers are an ``nn.ModuleList`` of blocks and a Python loop runs them.
-The reference's sharding constraints are no-ops outside a sharding
-context and the port has none yet (sharding comes with the mesh slice),
-so nothing here constrains a layout.
+The reference's sharding constraints sit where its own do
+(``models/sharding.py``): outside a sharding context each returns its
+argument itself; inside one (parameters placed by
+``param_sharding.lm_param_specs``) the model runs on DTensors, and MoE
+layers with ``impl="ep"`` take the expert-parallel region
+(``models/moe_ep.py``).
 
 Training differentiates ``lm_loss`` with autograd. Where gradients are
 recorded, each block runs under ``torch.utils.checkpoint`` when
@@ -33,6 +36,7 @@ a dict that shares them.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -53,6 +57,13 @@ from repro_torch.models.layers import (
     load_tree,
     mlp_apply,
     rms_norm,
+)
+from repro_torch.models.param_sharding import lm_layer_slice_rule
+from repro_torch.models.sharding import (
+    constrain,
+    constrain_spec,
+    current_mesh,
+    recompute_context,
 )
 
 _BIG_WINDOW = 1 << 30
@@ -110,25 +121,47 @@ def _layer_window(cfg: LMConfig, idx: int) -> Optional[int]:
     return cfg.window if idx % cfg.window_pattern == 0 else _BIG_WINDOW
 
 
+def _constrain_layer_slice(lp, prefix: str = ""):
+    """This layer's parameters pinned to their layer-slice specs (the
+    reference pins its scanned slice, so the FSDP gathers happen per
+    layer): a namespace mirroring the block's attributes, or the block
+    itself outside a sharding context."""
+    if current_mesh() is None:
+        return lp
+    out = SimpleNamespace()
+    for name, p in lp.named_parameters(recurse=False):
+        setattr(out, name, constrain_spec(
+            p, lm_layer_slice_rule(prefix + name)))
+    for name, child in lp.named_children():
+        setattr(out, name, _constrain_layer_slice(child, f"{prefix}{name}/"))
+    return out
+
+
 def _block(cfg: LMConfig, lp, x, idx: int, kv=None, cache_len=None):
     """One transformer block. Returns (x, aux, new_kv)."""
+    lp = _constrain_layer_slice(lp)
     window = _layer_window(cfg, idx)
-    h = rms_norm(lp.attn_norm, x)
+    # the residual stream is pinned to its sequence-parallel layout at
+    # the block's entry, after attention and after the FFN ('act_seq'
+    # maps to the model axis in training)
+    x = constrain(x, "dp", "act_seq", None)
+    h = whole_seq(rms_norm(lp.attn_norm, x))
     attn_out, new_kv = attention_apply(
         lp.attn, cfg, h, window_arr=window, kv_cache=kv,
         cache_len=cache_len)
+    attn_out = whole_seq(attn_out)
     if cfg.attn_softcap is not None:
         attn_out = rms_norm(lp.post_attn_norm, attn_out)
-    x = x + attn_out
+    x = constrain(x + attn_out, "dp", "act_seq", None)
     h = rms_norm(lp.mlp_norm, x)
     if cfg.moe is not None:
         ff, aux = moe_lib.moe_apply(lp.moe, cfg, h)
     else:
-        ff = mlp_apply(lp.mlp, h, cfg.mlp)
+        ff = whole_seq(mlp_apply(lp.mlp, whole_seq(h), cfg.mlp))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.attn_softcap is not None:
         ff = rms_norm(lp.post_mlp_norm, ff)
-    return x + ff, aux, new_kv
+    return constrain(x + ff, "dp", "act_seq", None), aux, new_kv
 
 
 def _train_block(cfg: LMConfig, lp, x, idx: int):
@@ -145,13 +178,25 @@ def _stack_scan(cfg: LMConfig, params, x, cache=None, cache_len=None):
     for idx, lp in enumerate(params.layers):
         if remat:
             x, a = checkpoint(_train_block, cfg, lp, x, idx,
-                              use_reentrant=False)
+                              use_reentrant=False,
+                              context_fn=recompute_context)
         else:
             kv = None if cache is None else (cache["k"][idx],
                                              cache["v"][idx])
             x, a, _ = _block(cfg, lp, x, idx, kv=kv, cache_len=cache_len)
         aux = aux + a
     return x, aux
+
+
+def whole_seq(x):
+    """``x`` (B, S, d) with its sequence whole on every rank. The
+    reference's residual stream is sharded over the sequence ('act_seq')
+    and GSPMD gathers it into each product and scatters each product's
+    sums back; DTensor will not fold a sequence-sharded tensor into a
+    product's rows (nor its gradient), so the port gathers a product's
+    input, and reduces its output, whole here. ``x`` itself outside a
+    sharding context."""
+    return constrain(x, "dp", None, None)
 
 
 def _unembed_weight(params, cfg: LMConfig):
@@ -165,13 +210,14 @@ def _softcap_logits(cfg: LMConfig, logits):
 
 
 def _logits(params, cfg: LMConfig, x):
-    x = rms_norm(params.final_norm, x)
-    return _softcap_logits(
+    x = whole_seq(rms_norm(params.final_norm, x))
+    logits = _softcap_logits(
         cfg, x @ _unembed_weight(params, cfg).to(x.dtype))
+    return constrain(logits, "dp", None, "tp")
 
 
 def _embed(params, cfg: LMConfig, tokens):
-    return params.embed[tokens].to(cfg.adtype)
+    return constrain(params.embed[tokens].to(cfg.adtype), "dp", None, None)
 
 
 def apply_lm(params, cfg: LMConfig, tokens):
@@ -183,9 +229,14 @@ def apply_lm(params, cfg: LMConfig, tokens):
 
 def _chunk_xent(cfg: LMConfig, x, w, labels):
     """Summed cross-entropy of one chunk: x (B, c, d), labels (B, c)."""
-    logits = _softcap_logits(cfg, x @ w).float()
+    logits = constrain(_softcap_logits(cfg, x @ w).float(), "dp", None,
+                       "tp")
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # under sharding rules the gather from vocab-sharded logits is a
+    # masked partial sum; it is reduced before the last dim is dropped
+    # (DTensor's mask does not follow the select)
+    gold = constrain(torch.gather(logits, -1, labels[..., None].long()),
+                     "dp", None, None)[..., 0]
     return (lse - gold).sum()
 
 
@@ -196,7 +247,7 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, loss_chunk: int = 512):
     recomputed in the backward pass."""
     x = _embed(params, cfg, tokens)
     x, aux = _stack_scan(cfg, params, x)
-    x = rms_norm(params.final_norm, x)
+    x = whole_seq(rms_norm(params.final_norm, x))
     w = _unembed_weight(params, cfg).to(x.dtype)
 
     b, s, _ = x.shape
@@ -208,8 +259,13 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, loss_chunk: int = 512):
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
         args = (cfg, x[:, i:i + c], w, labels[:, i:i + c])
-        total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False)
+        total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False,
+                                    context_fn=recompute_context)
                          if grad else _chunk_xent(*args))
+    # under sharding rules the chunk sums are partial over the data
+    # ranks: they are reduced before ``aux`` (each rank's own, in the
+    # expert-parallel region) is added
+    total = constrain(total)
     loss = total / (b * s) + aux
     return loss, {"xent": total / (b * s), "aux": aux}
 
@@ -221,8 +277,10 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     dtype = dtype or cfg.adtype
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
+    return {"k": constrain(torch.zeros(shape, dtype=dtype, device=dev),
+                           None, "dp", "sp", None, None),
+            "v": constrain(torch.zeros(shape, dtype=dtype, device=dev),
+                           None, "dp", "sp", None, None),
             "len": 0}
 
 

@@ -83,6 +83,10 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/train/steps.py",
                  "src/repro_torch/train/trainer.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/models/param_sharding.py",
+                 "src/repro_torch/models/moe_ep.py",
+                 "src/repro_torch/distributed/elastic.py",
                  "examples/torch_train_lm.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_multi_source_sssp.py",
