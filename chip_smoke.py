@@ -94,7 +94,7 @@
 8. Batched queries and frontier policies, on the graphs above (run
    after phase 4; the game-map part at the end of phase 5). On the
    1 M-vertex small-world graph: ``MultiSource`` of 8 fixed sources (0
-   and seven spread ids) on ``edge``, and of the first 4 of them on
+   and seven spread ids) on ``edge``, and of the first 2 of them on
    ``ell`` (one ``[B, n]`` loop, fewer host syncs than the lanes' single
    solves together), of 2
    sources on ``pallas`` and ``fused`` (lane by lane through the
@@ -106,7 +106,10 @@
    rows. ``frontier_cap=4096`` on ``ell``, ``pallas`` and ``fused``:
    without fallback the solve reports overflow, launches its kernels by
    its own counters' equations and answers bitwise as the same loop on
-   the CPU (``ell``'s for ``pallas``); with ``fallback=True`` it answers as the uncapped plan of
+   the CPU (``ell``'s for ``pallas``; those CPU answers come from a
+   process of their own, ``chip_smoke.py --capped-host DIR``, started
+   before phase 1 on the same graph made from its seed, its checksum
+   compared); with ``fallback=True`` it answers as the uncapped plan of
    phase 3, with ``telemetry.fallback`` and
    ``explain()["fallback_taken"]`` set, and launches what the capped
    solve and the full-width twin's solve launch together. ``rho``
@@ -134,7 +137,8 @@
 9. Dynamic graphs (run after phase 7; it updates phase 3's plans), on
    the 1 M-vertex small-world graph with the update protocol of
    ``benchmarks/bench_dynamic.py:_batches`` (seeded id sets of k =
-   20 000 and 200 000 edges, 0.1 % and 1 % of |E|, each with two
+   20 000 edges, 0.1 % of |E| (k = 200 000, 1 %, was cut for time in
+   PR 25; ``DYN_KS``), each with two
    distinct weight assignments ``clip(w0 + U[-5, 5], 1, 20)``, cycled so
    no batch is a no-op). ``edge``, ``ell``, ``pallas`` and ``fused``
    (argmin) and ``fused`` (packed): ``SingleSource(0)``, then per k the
@@ -147,7 +151,8 @@
    equal to the warm runs' own equations (``pallas`` on its rebuilt
    backend; the ``fused`` twin by ``fused``'s; a twin overflow's
    full-width re-run adds its own). The strategies ``DYN_TIMED``
-   (``edge``, ``pallas``) take two warm-up batches before the first
+   (``edge``) take one warm-up batch (two before PR 25's cut for time;
+   its weights end as they did) before the first
    counted one and, after it (the first k only), are timed: ``DYN_REPS``
    more batches (update + warm resolve, split into update, host repair
    planning, warm backend, device loop and the rest, each part checked
@@ -175,11 +180,12 @@
    ``d_in`` rows equal to scipy on the forward and the reversed edge
    list; the all-light ELL blocks' host build, timed. ``early_exit``,
    ``alt``, ``bidirectional`` and ``alt_bidirectional`` from source 0 to
-   the farthest vertex (largest finite distance, lowest id) and to the
-   vertex at the median finite distance (lowest id): distance equal to
+   the farthest vertex (largest finite distance, lowest id; the vertex
+   at the median finite distance too before PR 25's cut for time):
+   distance equal to
    scipy's, a valid path of that weight, ``host_syncs == 2 * buckets +
    inner_iters + 1``, no overflow; wall times (``LANDMARK_REPS`` runs
-   after one warm-up to the far target, one run to the near one). One profiled
+   after one warm-up). One profiled
    ``alt`` query: device busy time, idle share and the scatter's share,
    with its records held against ``2 * (buckets + inner_iters) + 1``
    (a compaction and a scatter-min per sweep, one scatter-min in pred
@@ -217,8 +223,8 @@
    with three tenants — the 1 M graph under ``tuning=<phase 11's
    cache>``, the same graph under ``DeltaConfig(strategy="fused")`` and
    ``grid_map(512, 512, 0.1)`` as a grid plan (Δ = 13) — serves the
-   request mix of ``benchmarks/bench_serving.py:_traffic`` (copied; 48
-   requests from seed 0) and one ``SingleSource`` per tenant, through
+   request mix of ``benchmarks/bench_serving.py:_traffic`` (copied; 24
+   requests from seed 0, 48 before PR 25's cut for time) and one ``SingleSource`` per tenant, through
    the background batch loop (``with srv:``), with the counters set to
    0 just before and read just after, each launch attributed to its
    tenant's graph (``smallworld_serve``, ``gamemap_serve``). Every
@@ -381,6 +387,31 @@
    re-meshed onto
    ``make_mesh_from([0], (1, 1))``, bitwise. ``[mesh]`` lines give each
    part's time, peak memory and the card's name and power limit.
+18. The dry run (run after phase 17; the counters set to 0 just before
+   it and read just after: it launches none of the four kernels, as the
+   reference's dry-run cells reach no Pallas kernel). (a) In one
+   process of its own for each entry of ``DRY_PARTS`` (``chip_smoke.py
+   --dryrun DIR PART``: each process's default group is a fake one),
+   started first:
+   ``launch.cells.build_cell`` and ``Cell.trace()`` on fake CUDA tensors
+   over fake 256- and 512-rank groups for the ``DRY_CELLS`` (gemma2-9b
+   ``train_4k`` and ``decode_32k`` on both production meshes,
+   kimi-k2-1t-a32b ``train_4k`` on 2x16x16, dlrm-mlperf ``train_batch``
+   and sssp-smallworld ``multi_source`` on both), each LM cut to
+   ``DRY_LAYERS`` layers; one ``[dryrun]`` line a cell: the three
+   roofline terms on the H100's data sheet, the dominant one, HBM GiB
+   per device, ``fits_hbm``, the useful ratio, the collective counts and
+   the trace seconds. (b) gemma2-9b at full width, ``DRY_REAL_LAYERS``
+   layers, batch ``DRY_REAL_BATCH``, ``train_4k`` (4096 seeded tokens)
+   and ``decode_32k`` (a 32 768-slot cache of seeded K/V, the step at
+   its last slot), built by ``build_cell(..., real=True)`` and run under
+   the rules on a one-rank NCCL mesh; the first child traces both at the
+   same sizes on a one-rank fake group. Each gives the real step's FLOPs
+   (``FlopCounterMode``) against the trace's (within ``DRY_FLOP_REL``),
+   its peak memory above the phase's start against the trace's
+   ``arguments + temps + outputs - alias``, its median of 3 against the
+   H100 terms' ``max(compute, memory)``; ``decode_32k``'s logits against
+   the plain-tensor ``decode_step``'s within ``LM_BF16_*``.
 
 Any failure raises and exits non-zero. The last three lines are the
 card's nvidia-smi line, one ``{"kernels": [...]}`` JSON object and
@@ -444,15 +475,17 @@ M2M_TARGETS, M2M_TILE, CAP, RADIUS_K = 1000, 8, 4096, 4
 # CPU plan whose capped answer each capped strategy's must equal
 POLICY_REPS = 1
 HOST_KIND = {"ell": "ell", "pallas": "ell", "fused": "fused"}
-ELL_BATCH = 4                  # ell's MultiSource: the first 4 sources
+# the child that computes those CPU answers from the start: its time limit
+CAPPED_LIMIT_S = 600
+ELL_BATCH = 2                  # ell's MultiSource: the first 2 sources
 SW_KERNELS = ("bucket_scan", "ell_relax", "frontier_relax")
-# phase 9: 0.1 % and 1 % of |E| per batch, two id sets per k (bench
-# protocol), the strategies timed, and the lattice
-DYN_KS, DYN_SETS, DYN_SEED = (20_000, 200_000), 2, 5
+# phase 9: 0.1 % of |E| per batch (1 % too before PR 25's depth cut),
+# two id sets per k (bench protocol), the strategies timed, the lattice
+DYN_KS, DYN_SETS, DYN_SEED = (20_000,), 2, 5
 # timed batches and cold re-solves of each DYN_TIMED plan (three before
 # the mesh phase)
 DYN_REPS = 1
-DYN_TIMED = ("edge", "pallas")
+DYN_TIMED = ("edge",)
 # the plans that also take the second k (edge: the oracle; fused: the
 # kernel path)
 DYN_WIDE = (("edge", "argmin"), ("fused", "argmin"))
@@ -468,7 +501,10 @@ LM_MODES = ("early_exit", "alt", "bidirectional", "alt_bidirectional")
 # fractions); phase 12: lanes, resident plans, the requests of the mix
 # and the edges per update (benchmarks/bench_serving.py's)
 TUNE_STRATEGIES, TUNE_POLICIES = ("edge", "fused"), ("delta",)
-SERVE_LANES, SERVE_RESIDENT, SERVE_REQUESTS, SERVE_UPDATE_EDGES = 8, 2, 48, 16
+# the estimator's Δ grid searched without this many of its lowest and
+# highest values (cut for time in PR 25; 0 searches the whole grid)
+TUNE_GRID_TRIM = 1
+SERVE_LANES, SERVE_RESIDENT, SERVE_REQUESTS, SERVE_UPDATE_EDGES = 8, 2, 24, 16
 # phase 13: gloo ranks on the one card, the distributed engine's sources
 # (one per data row on the (2, 1) mesh), each subprocess's time limit
 SHARD_RANKS, SHARD_SOURCES, SHARD_LIMIT_S = 2, (0, 131_071), 400
@@ -529,6 +565,28 @@ MESH_MAPPING = {"dp": ("pod", "data"), "fsdp": ("pod", "data"),
                 "tp": "model", "sp": "model", "ep_cap": ("pod", "data"),
                 "act_seq": "model"}
 MESH_LIMIT_S = 300
+# phase 18: the dry run. (a) cells traced on fake CUDA tensors over fake
+# 256- and 512-rank groups in child processes, each LM cut to DRY_LAYERS
+# layers (arch, shape, meshes: False the 16x16, True the 2x16x16); (b)
+# gemma2-9b at full width, DRY_REAL_LAYERS layers, batch DRY_REAL_BATCH,
+# run for real on a one-rank NCCL mesh and traced on a one-rank fake
+# group in the first child; the children that share (a)'s cells; the real
+# step's FLOPs (FlopCounterMode) against the trace's (PERF.md §6, PR 25);
+# the children's time limit
+DRY_CELLS = (("gemma2-9b", "train_4k", (False, True)),
+             ("gemma2-9b", "decode_32k", (False, True)),
+             ("kimi-k2-1t-a32b", "train_4k", (True,)),
+             ("dlrm-mlperf", "train_batch", (False, True)),
+             ("sssp-smallworld", "multi_source", (False, True)))
+DRY_LAYERS = 1
+# the (cell of DRY_CELLS, multi-pod) pairs each child traces (the first
+# also traces DRY_REAL)
+DRY_PARTS = (((0, False),), ((0, True), (4, False), (4, True)),
+             ((1, False), (1, True), (2, True)), ((3, False), (3, True)))
+DRY_REAL = (("gemma2-9b", "train_4k"), ("gemma2-9b", "decode_32k"))
+DRY_REAL_LAYERS, DRY_REAL_BATCH = 4, 1
+DRY_FLOP_REL = 0.01
+DRY_LIMIT_S = 300
 
 
 def check(cond, what: str) -> None:
@@ -1155,8 +1213,46 @@ def fmt(walls) -> str:
             + ", ".join(f"{x:.1f}" for x in walls) + ")")
 
 
+def graph_digest(g) -> str:
+    """A checksum of a graph's edge arrays (the capped-answer child makes
+    its own copy of the graph from the seed)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (g.src, g.dst, g.w):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def capped_host(work: str) -> int:
+    """Phase 8e's CPU answers, in a process of its own started before
+    phase 1 (~35 s of the host, overlapped with phases 1 to 7): the
+    capped ``SingleSource(0)`` of ``ell`` (also ``pallas``'s loop) and
+    ``fused`` on the CPU, on ``watts_strogatz(N_NODES, DEGREE,
+    P_REWIRE, seed=0)`` made anew, saved with the graph's checksum to
+    ``WORK/capped.pt``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import Engine, SingleSource
+    from repro_torch.core import DeltaConfig
+    from repro_torch.graphs import watts_strogatz
+
+    torch.set_num_threads(2)
+    g = watts_strogatz(N_NODES, DEGREE, P_REWIRE, seed=0)
+    out = {"graph": graph_digest(g)}
+    for kind in ("ell", "fused"):
+        t0 = time.perf_counter()
+        cfg = DeltaConfig(delta=DELTA, strategy=kind, pred_mode="argmin",
+                          frontier_cap=CAP)
+        res = Engine(g, cfg, device="cpu").plan().solve(SingleSource(0))
+        t = res.telemetry
+        out[kind] = (res.dist, res.pred, t.buckets, t.inner_iters,
+                     t.overflow, time.perf_counter() - t0)
+    torch.save(out, Path(work) / "capped.pt")
+    return 0
+
+
 def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
-                          counters):
+                          counters, host_capped):
     """Phase 8 on the 1 M-vertex small-world graph: batched queries, the
     overflow fallback and the frontier policies (see the module note).
     Returns the launches of the ``pallas``/``fused`` ``MultiSource``
@@ -1289,7 +1385,9 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
     # input (fidx of CAP rows), and each capped answer on the card must
     # equal the same loop's on the CPU (ell's for pallas)
     capped = Largest(backends, frontier_sizes(g.n_nodes, SW_KERNELS))
-    host_capped = {}
+    host = host_capped()
+    check(host["graph"] == graph_digest(g), "the capped-answer child's "
+          "graph differs from this one")
     launches_fb = dict.fromkeys(counters, 0)      # the capped solves
     launches_twin = dict.fromkeys(counters, 0)    # the twins' re-solves
     for st in ("ell", "pallas", "fused"):
@@ -1307,19 +1405,14 @@ def batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
         check(got_raw == delta_launches(st, rt.buckets, rt.inner_iters),
               f"{st} cap {CAP}: launches {got_raw} off the capped solve's "
               "equations")
-        # the CPU's capped answer: ell's and pallas's are one answer (the
-        # same loop, buckets and sweeps), computed once
-        t0 = time.perf_counter()
-        if HOST_KIND[st] not in host_capped:
-            host_capped[HOST_KIND[st]] = Engine(
-                g, cfg, device="cpu").plan().solve(SingleSource(0))
-        host = host_capped[HOST_KIND[st]]
-        cpu_s = time.perf_counter() - t0
-        ht = host.telemetry
-        check(torch.equal(raw.dist.cpu(), host.dist)
-              and torch.equal(raw.pred.cpu(), host.pred)
+        # the CPU's capped answer (from the child started first): ell's
+        # and pallas's are one answer (the same loop, buckets and sweeps)
+        h_dist, h_pred, h_buckets, h_inner, h_over, cpu_s = \
+            host[HOST_KIND[st]]
+        check(torch.equal(raw.dist.cpu(), h_dist)
+              and torch.equal(raw.pred.cpu(), h_pred)
               and (rt.buckets, rt.inner_iters, rt.overflow)
-              == (ht.buckets, ht.inner_iters, ht.overflow),
+              == (h_buckets, h_inner, h_over),
               f"{st} cap {CAP}: the capped answer on the card differs from "
               "the CPU's")
         plan = Engine(g, cfg, device=cuda).plan(fallback=True)
@@ -1594,7 +1687,7 @@ def dynamic_path(torch, np, cuda, g, plans, counters):
         first = k == DYN_KS[0]
         # the first k: two warm-up batches, the counted one, then
         # DYN_REPS timed (DYN_TIMED only); the second k: the counted one
-        warmups, counted_b = (seq[:2], seq[2]) if first else ([], seq[0])
+        warmups, counted_b = (seq[1:2], seq[2]) if first else ([], seq[0])
         timed_b = [seq[3], seq[0], seq[1]][:DYN_REPS]
         oracle = None
         refs = []       # (weights, warm answer, plan) of this k, per weights
@@ -1805,9 +1898,7 @@ def landmark_path(torch, np, cuda, g, ref_dist, keyed, counters):
     n = g.n_nodes
     fin = ref_dist < INF
     far = int(np.flatnonzero(ref_dist == ref_dist[fin].max())[0])
-    median = np.sort(ref_dist[fin])[(int(fin.sum()) - 1) // 2]
-    near = int(np.flatnonzero(ref_dist == median)[0])
-    targets = {"far": far, "near": near}
+    targets = {"far": far}
 
     # the game map's reference answer launches the grid kernels: it is
     # solved before the counters are set to 0
@@ -1865,7 +1956,7 @@ def landmark_path(torch, np, cuda, g, ref_dist, keyed, counters):
         f"{plan._landmarks._fwd_ell.max_deg}) built on the host in "
         f"{time.perf_counter() - t0:.1f} s, once per weight version")
 
-    # -- 10b. queries: every mode to the far and the median target ---------
+    # -- 10b. queries: every mode to the far target ------------------------
     walls = {}
     for mode in LM_MODES:
         for name, t in targets.items():
@@ -2079,21 +2170,25 @@ def tuning_path(torch, np, cuda, g, ref_dist, keyed, counters):
     t0 = time.perf_counter()
     stats = graph_stats(gd)
     stats_s = time.perf_counter() - t0
+    grid = sorted({c[0] for c in candidate_configs(
+        stats, strategies=TUNE_STRATEGIES, policies=TUNE_POLICIES)})
+    deltas = grid[TUNE_GRID_TRIM:len(grid) - TUNE_GRID_TRIM]
     cands = candidate_configs(stats, strategies=TUNE_STRATEGIES,
-                              policies=TUNE_POLICIES)
-    deltas = sorted({c[0] for c in cands})
+                              deltas=deltas, policies=TUNE_POLICIES)
     n_fused = sum(1 for c in cands if c[1] == "fused")
-    check(len(cands) == 3 * len(deltas) and n_fused == 2 * len(deltas),
+    check(est in deltas and len(cands) == 3 * len(deltas)
+          and n_fused == 2 * len(deltas),
           "the candidate grid is not Δ x (edge, fused at cap n and n/4)")
     log(f"[tune] graph_stats (hop-radius probe included) {stats_s:.2f} s; "
-        f"estimate Δ={est}, grid Δ={deltas}: {len(cands)} candidates, "
-        f"{n_fused} fused")
+        f"estimate Δ={est}, the estimator's grid Δ={grid} searched without "
+        f"its {TUNE_GRID_TRIM} lowest and highest, Δ={deltas}: {len(cands)} "
+        f"candidates, {n_fused} fused")
     keep = tempfile.TemporaryDirectory()
     path = os.path.join(keep.name, "tuning.json")
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    rec = tune(gd, sources=(0,), strategies=TUNE_STRATEGIES,
+    rec = tune(gd, sources=(0,), strategies=TUNE_STRATEGIES, deltas=deltas,
                policies=TUNE_POLICIES, cache=TuningCache(path), device=cuda)
     search_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -4261,6 +4356,264 @@ def mesh_one_rank(torch, np, cuda, smi) -> None:
         group_dir.cleanup()
 
 
+# -- phase 18: the dry run ----------------------------------------------------
+
+def dry_line(d: dict, cut: str) -> str:
+    """One ``[dryrun]`` line of a traced cell's report."""
+    counts = {op: s["count"] for op, s in d["collectives"]["by_op"].items()}
+    return (f"[dryrun] {d['arch']} {d['shape']} {d['mesh']} ({cut}): C "
+            f"{d['compute_s']:.3e} s, M {d['memory_s']:.3e} s, X "
+            f"{d['collective_s']:.3e} s -> {d['dominant']}; HBM "
+            f"{d['hbm_bytes_per_dev'] / 2**30:.2f} GiB/dev (fits_hbm="
+            f"{d['fits_hbm']}); useful {d['useful_ratio']:.1%}; collectives "
+            f"{json.dumps(counts)}; traced in {d['lower_s']} s")
+
+
+def dryrun_child(work: str, part: int) -> int:
+    """Phase 18(a), in a process of its own (its default group is a fake
+    one): the cells and meshes of ``DRY_CELLS`` that ``DRY_PARTS[part]``
+    names, traced on fake CUDA tensors over fake 256- and 512-rank groups, each
+    LM cut to ``DRY_LAYERS`` layers; in part 0 also the ``DRY_REAL``
+    cells at (b)'s sizes on a one-rank fake group, their reports written
+    to ``WORK/real.json``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import family_of
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import fake_group, report
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cuda = torch.device("cuda", 0)
+    torch.cuda.set_device(cuda)
+    import traceback
+
+    failed = 0
+    for i, multi in DRY_PARTS[part]:
+        arch, shape, _ = DRY_CELLS[i]
+        lm = family_of(arch) == "lm"
+        fake_group(512 if multi else 256)
+        mesh = make_production_mesh(multi_pod=multi)
+        t0 = time.perf_counter()
+        try:
+            cell = build_cell(arch, shape, mesh, device=cuda,
+                              layers=DRY_LAYERS if lm else None)
+            d = report(cell, cell.trace(), mesh, time.perf_counter() - t0)
+        except Exception as e:         # listed, and the child fails at its end
+            failed += 1
+            traceback.print_exc()
+            log(f"[dryrun] FAILED {arch} {shape} "
+                f"{'2x16x16' if multi else '16x16'}: {e!r}"[:600])
+            continue
+        log(dry_line(d, f"{DRY_LAYERS} layers" if lm else "full size"))
+    if part:
+        return int(failed > 0)
+    fake_group(1)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                            "model"))
+    out = {}
+    for arch, shape in DRY_REAL:
+        t0 = time.perf_counter()
+        cell = build_cell(arch, shape, mesh, device=cuda,
+                          layers=DRY_REAL_LAYERS, batch=DRY_REAL_BATCH)
+        trace = cell.trace()
+        d = report(cell, trace, mesh, time.perf_counter() - t0)
+        log(dry_line(d, f"one rank, {DRY_REAL_LAYERS} layers, batch "
+                        f"{DRY_REAL_BATCH}"))
+        out[shape] = d
+    with open(Path(work) / "real.json", "w") as f:
+        json.dump(out, f)
+    return int(failed > 0)
+
+
+def dryrun_path(torch, np, cuda, counters, smi) -> None:
+    """Phase 18: the dry run (module note)."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    check(sorted(x for part in DRY_PARTS for x in part) == sorted(
+        (i, m) for i, (*_, meshes) in enumerate(DRY_CELLS) for m in meshes),
+        "DRY_PARTS does not cover each cell and mesh of DRY_CELLS once")
+    work = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # (a) in processes of their own, started first: they trace on the
+    # host beside (b)'s runs on the card
+    children = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun", work.name,
+         str(part)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for part in range(len(DRY_PARTS))]
+    try:
+        real = dry_real_runs(torch, np, cuda)
+        log(f"[dryrun] (b) ran {time.perf_counter() - t_phase:.1f} s into "
+            "the phase")
+        outs = [child.communicate(timeout=max(
+            1.0, DRY_LIMIT_S - (time.perf_counter() - t_phase)))[0]
+            for child in children]
+        lines = [ln for out in outs for ln in out.splitlines()
+                 if ln.startswith("[dryrun]")]
+        for line in lines:
+            log(line)
+        for child, out in zip(children, outs):
+            check(child.returncode == 0, f"a dry-run child failed (exit "
+                  f"{child.returncode}):\n{out[-4000:]}")
+        with open(Path(work.name) / "real.json") as f:
+            traced = json.load(f)
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        work.cleanup()
+    check(len(lines) == sum(map(len, DRY_PARTS)) + len(DRY_REAL),
+          f"the dry-run children printed too few lines:\n{outs[0][-3000:]}"
+          f"\n{outs[-1][-3000:]}")
+    log(f"[dryrun] (a) the children were done "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase; {smi}")
+    for shape, got in real.items():
+        d = traced[shape]
+        rel = abs(got["flops"] - d["flops_per_dev"]) / d["flops_per_dev"]
+        bound_ms = max(d["compute_s"], d["memory_s"]) * 1e3
+        ratio = got["peak_bytes"] / d["hbm_bytes_per_dev"]
+        log(f"[dryrun] (b) {DRY_REAL[0][0]} {shape} at full width on a "
+            f"one-rank NCCL mesh, {DRY_REAL_LAYERS} layers, batch "
+            f"{DRY_REAL_BATCH}{got['cut']}: FLOPs {got['flops']:.6e} (FlopCounterMode "
+            f"around the real step) against {d['flops_per_dev']:.6e} traced"
+            f" ({rel:.3%} apart, limit {DRY_FLOP_REL:.0%}); peak "
+            f"{got['peak_bytes'] / 1e9:.3f} GB above the phase's start "
+            f"against {d['hbm_bytes_per_dev'] / 1e9:.3f} GB traced "
+            f"(arguments + temps + outputs - alias; ratio {ratio:.3f}); "
+            f"{got['ms']:.1f} ms a step (median of 3) against the H100 "
+            f"terms' max(C, M) {bound_ms:.2f} ms{got['extra']}; {smi}")
+        check(rel <= DRY_FLOP_REL, f"(b) {shape}: the real step's FLOPs are "
+              f"{rel:.3%} from the trace's")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the dry-run path launched an SSSP kernel: {launches}")
+    log(f"[dryrun] launches over phase 18: {json.dumps(launches)} (the "
+        "dry-run path reaches no Pallas kernel in the reference and none "
+        "here)")
+    log(f"[dryrun] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def dry_real_runs(torch, np, cuda) -> dict:
+    """Phase 18(b): the ``DRY_REAL`` cells run for real under the rules on
+    a one-rank NCCL mesh: FLOPs, peak memory and time of the step; for
+    ``decode_32k`` its logits against the plain-tensor ``decode_step``."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch.distributed as tdist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import full
+
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=cuda)
+    group_dir = tempfile.TemporaryDirectory()
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(Path(group_dir.name) / "store"), 1), rank=0, world_size=1,
+        device_id=cuda)
+    out = {}
+    try:
+        mesh = make_host_mesh(1, 1)
+        for arch, shape in DRY_REAL:
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cell = build_cell(arch, shape, mesh, device=cuda,
+                              layers=DRY_REAL_LAYERS, batch=DRY_REAL_BATCH,
+                              real=True)
+            whole = configs.get_config(arch)
+            cfg = dataclasses.replace(whole, n_layers=DRY_REAL_LAYERS)
+            cut = (f" (cut from {whole.n_layers} layers and batch "
+                   f"{configs.get_shape(arch, shape).global_batch}")
+            if shape == "train_4k":
+                batch = cell.args[2]
+                for key in ("tokens", "labels"):
+                    batch[key].to_local().copy_(torch.randint(
+                        0, cfg.vocab, batch[key].shape, generator=gen
+                        .manual_seed(1), device=cuda, dtype=torch.int32))
+                cut += ")"
+            else:
+                model, cache, tokens = cell.args
+                for key in ("k", "v"):
+                    cache[key].to_local().copy_(torch.randn(
+                        cache[key].shape, generator=gen.manual_seed(2),
+                        device=cuda, dtype=torch.float32).to(
+                            cache[key].dtype))
+                # the last slot: the step attends over the whole cache
+                cache["len"] = cache["k"].shape[2] - 1
+                tokens.to_local().copy_(torch.randint(
+                    0, cfg.vocab, tokens.shape, generator=gen.manual_seed(3),
+                    device=cuda, dtype=torch.int32))
+                cut += f"; a {cache['k'].shape[2]}-slot cache)"
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            first = cell.fn(*cell.args)
+            sync()
+            peak = torch.cuda.max_memory_allocated() - base
+            counter = FlopCounterMode(display=False)
+            with counter:
+                cell.fn(*cell.args)
+            sync()
+            walls = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                cell.fn(*cell.args)
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            if shape == "decode_32k":
+                # the same step on plain tensors: the same seeded weights
+                # (cells draw them from a generator seeded 0), cache, token
+                plain_cfg = dataclasses.replace(cfg, remat=False)
+                plain = tf.init_lm(plain_cfg, torch.Generator(
+                    device=cuda).manual_seed(0), cuda)
+                pc = {"k": full(cache["k"]).clone(),
+                      "v": full(cache["v"]).clone(), "len": cache["len"]}
+                with torch.no_grad():
+                    ref = tf.decode_step(plain, plain_cfg, pc,
+                                         full(tokens))[0]
+                got = full(first[0])
+                check(bool(torch.isfinite(got).all())
+                      and got.shape == ref.shape, "(b) decode logits")
+                err = logit_err(got, ref)
+                check(within_bf16(err), f"(b) decode logits under the rules "
+                      f"{err} from the plain decode_step's, past "
+                      f"({LM_BF16_MAX_ABS}, {LM_BF16_REL})")
+                extra = (f"; logits within {err[0]:.4f} max abs, {err[1]:.2e}"
+                         f" relative of the plain-tensor decode_step's "
+                         f"(tolerance {LM_BF16_MAX_ABS}, {LM_BF16_REL})")
+                del plain, pc, ref, got
+            else:
+                loss = float(first[3]["loss"])
+                check(np.isfinite(loss), f"(b) train loss {loss}")
+                extra = f"; loss {loss:.4f}"
+            out[shape] = {"flops": float(counter.get_total_flops()),
+                          "peak_bytes": int(peak),
+                          "ms": statistics.median(walls), "cut": cut,
+                          "extra": extra}
+            log(f"[dryrun] (b) {arch} {shape} ran: {json.dumps(out[shape])}")
+            del cell, first
+    finally:
+        tdist.destroy_process_group()
+        group_dir.cleanup()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4289,6 +4642,28 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
+
+    # phase 8e's CPU answers, in a process of their own from the start
+    import os
+    import tempfile
+    capped_dir = tempfile.TemporaryDirectory()
+    capped_proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--capped-host",
+         capped_dir.name], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def host_capped():
+        try:
+            out, _ = capped_proc.communicate(timeout=CAPPED_LIMIT_S)
+        finally:
+            if capped_proc.poll() is None:
+                capped_proc.kill()
+                capped_proc.wait()
+        check(capped_proc.returncode == 0, f"the capped-answer child "
+              f"failed (exit {capped_proc.returncode}):\n{out[-4000:]}")
+        got = torch.load(Path(capped_dir.name) / "capped.pt")
+        capped_dir.cleanup()
+        return got
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4563,7 +4938,7 @@ def main() -> int:
     # -- 8. batched queries and frontier policies (small-world part) -------
     launches_bm, launches_pol, launches_fb, launches_twin, records = \
         batch_and_policy_path(torch, np, cuda, g, keyed, plans, results,
-                              counters)
+                              counters, host_capped)
     check(launches_bm["bucket_scan"] > 0 and launches_bm["ell_relax"] > 0
           and launches_bm["frontier_relax"] > 0,
           "the batched path did not launch bucket_scan, ell_relax and "
@@ -4686,6 +5061,9 @@ def main() -> int:
 
     # -- 17. the mesh path (launches no SSSP kernel) ------------------------
     mesh_path(torch, np, cuda, counters, smi)
+
+    # -- 18. the dry run (launches no SSSP kernel) --------------------------
+    dryrun_path(torch, np, cuda, counters, smi)
 
     kernels = []
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=cuda)
@@ -4870,4 +5248,8 @@ if __name__ == "__main__":
         sys.exit(train_restart(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--capped-host"]:
+        sys.exit(capped_host(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun"]:
+        sys.exit(dryrun_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

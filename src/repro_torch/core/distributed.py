@@ -31,9 +31,12 @@ and over gloo on the CPU (gloo takes CUDA tensors too).
 Without a mesh the engine runs one shard and one data row in-process,
 with no collective.
 
-The dry-run's ``input_specs_sssp`` is not ported (ROADMAP Queue 1 item
-6f, with ``launch/dryrun.py``). ``repro_torch.launch.mesh.make_host_mesh``
-builds the mesh this engine takes.
+The dry run (``launch/cells.py``) traces ``solve.step``, one outer step
+of the loop built from the same closures, on fake stand-ins
+(``input_specs_sssp``): the loop's trip count is data-dependent, as it
+is for the reference's lowered while-loop.
+``repro_torch.launch.mesh.make_host_mesh`` builds the mesh this engine
+takes.
 """
 from __future__ import annotations
 
@@ -153,7 +156,8 @@ def build_solver_from_meta(*, n_nodes: int, shard_nodes: int, mesh=None,
     outer, inner)`` where ``src``/``dst``/``w`` are *this rank's* edge
     shard (its row of a ``VertexPartition``) and ``vstart`` its first
     owned vertex: each rank holds only its own shard. ``B`` must be a
-    multiple of the batch dims' size."""
+    multiple of the batch dims' size. ``solve.step`` is one outer step of
+    its loop for the dry run (``step`` below)."""
     dev = resolve_device(device)
     lay = _Mesh(mesh, cfg)
     n, s = n_nodes, shard_nodes
@@ -168,31 +172,77 @@ def build_solver_from_meta(*, n_nodes: int, shard_nodes: int, mesh=None,
             return torch.minimum(tent, lay.scatter_min(buf, s))
         return torch.minimum(tent, lay.reduce(buf, dist.ReduceOp.MIN)[mine])
 
+    def local_sweep(tent, frontier, light, edges):
+        """Relax this rank's ``edges`` (``src_off``, ``dst``, ``w``) from
+        ``frontier`` into a fresh full-size candidate buffer."""
+        src_off, dst64, w_e = edges
+        cand, ok = edge_candidates(tent[src_off], frontier[src_off], w_e,
+                                   delta=delta, light=light)
+        buf = torch.full((n_pad,), _INF, dtype=torch.int32, device=dev)
+        return buf.scatter_reduce_(0, dst64, torch.where(ok, cand, _INF),
+                                   "amin", include_self=True)
+
+    def any_flag(tent, explored, i):
+        """Bucket ``i``'s frontier and its any-flag, MAX over the model
+        dim (a uint8 tensor)."""
+        f, any_loc, _ = scan_bucket(tent, explored, i, delta=delta)
+        return f, lay.reduce(any_loc.reshape(1).to(torch.uint8),
+                             dist.ReduceOp.MAX)
+
+    def flag(tent, explored, i):
+        f, go = any_flag(tent, explored, i)
+        return f, bool(go)
+
+    def next_bucket(tent, explored, i):
+        """The next non-empty bucket, MIN over the model dim."""
+        _, _, nxt = scan_bucket(tent, explored, i, delta=delta)
+        return lay.reduce(nxt.reshape(1), dist.ReduceOp.MIN)
+
+    def init_tent(source):
+        lidx = torch.arange(s, dtype=torch.int32, device=dev) + base
+        tent = torch.where((lidx == source) & (lidx < n), 0, _INF)
+        return tent.to(torch.int32)
+
+    def outer_step(tent, explored, i, edges):
+        """One step of ``solve_one``'s outer loop with one light sweep,
+        reading nothing on the host: the light phase's first any-flag,
+        one light sweep with its combine and its any-flag, the heavy
+        sweep with its combine, the next-bucket MIN. Returns ``(tent,
+        explored, go, nxt)``."""
+        f, _ = any_flag(tent, explored, i)
+        explored = torch.where(f, tent, explored)
+        in_s = f
+        f2, _, _ = scan_bucket(tent, explored, i, delta=delta)
+        tent = combine_min(local_sweep(tent, f2 | f, True, edges), tent)
+        _, go = any_flag(tent, explored, i)
+        tent = combine_min(local_sweep(tent, in_s, False, edges), tent)
+        return tent, explored, go, next_bucket(tent, explored, i)
+
+    def step(sources, src, dst, w, vstart):
+        """One outer step from bucket 0 for each of ``sources`` (this
+        rank's share), on this rank's edge shard taken as all real
+        (``src < n`` everywhere: the edges are already masked), with
+        ``vstart`` a tensor: the dry run's traced step, whose loop trip
+        count is data-dependent. Returns ``(tent [B, S], go, nxt)`` of
+        the last source."""
+        edges = (src.to(torch.int64) - vstart.to(torch.int64),
+                 dst.to(torch.int64), w)
+        lanes = []
+        go = nxt = None
+        for source in sources:
+            explored = torch.full((s,), _INF, dtype=torch.int32, device=dev)
+            tent, _, go, nxt = outer_step(init_tent(source), explored, 0,
+                                          edges)
+            lanes.append(tent)
+        return torch.stack(lanes), go, nxt
+
     def solve(sources, src, dst, w, vstart):
         real = src < n
-        src_off = (src[real].to(torch.int64) - int(vstart)).to(dev)
-        dst64 = dst[real].to(device=dev, dtype=torch.int64)
-        w_e = w[real].to(dev)
-
-        def local_sweep(tent, frontier, light):
-            """Relax this rank's edges from ``frontier`` into a fresh
-            full-size candidate buffer."""
-            cand, ok = edge_candidates(tent[src_off], frontier[src_off], w_e,
-                                       delta=delta, light=light)
-            buf = torch.full((n_pad,), _INF, dtype=torch.int32, device=dev)
-            return buf.scatter_reduce_(0, dst64, torch.where(ok, cand, _INF),
-                                       "amin", include_self=True)
-
-        def flag(tent, explored, i):
-            f, any_loc, _ = scan_bucket(tent, explored, i, delta=delta)
-            go = lay.reduce(any_loc.reshape(1).to(torch.uint8),
-                            dist.ReduceOp.MAX)
-            return f, bool(go)
+        edges = ((src[real].to(torch.int64) - int(vstart)).to(dev),
+                 dst[real].to(device=dev, dtype=torch.int64), w[real].to(dev))
 
         def solve_one(source):
-            lidx = torch.arange(s, dtype=torch.int32, device=dev) + base
-            tent = torch.where((lidx == source) & (lidx < n), 0, _INF)
-            tent = tent.to(torch.int32)
+            tent = init_tent(source)
             explored = torch.full((s,), _INF, dtype=torch.int32, device=dev)
             i, outer, inner = 0, 0, 0
             while i < _IMAX:
@@ -206,16 +256,16 @@ def build_solver_from_meta(*, n_nodes: int, shard_nodes: int, mesh=None,
                     for _ in range(cfg.local_steps - 1):
                         fl, _, _ = scan_bucket(tent, explored, i, delta=delta)
                         explored = torch.where(fl, tent, explored)
-                        buf = local_sweep(tent, fl, light=True)
+                        buf = local_sweep(tent, fl, True, edges)
                         tent = torch.minimum(tent, buf[mine])
                     f2, _, _ = scan_bucket(tent, explored, i, delta=delta)
-                    tent = combine_min(local_sweep(tent, f2 | f, light=True),
-                                       tent)
+                    tent = combine_min(
+                        local_sweep(tent, f2 | f, True, edges), tent)
                     f, go = flag(tent, explored, i)
                     inner += 1
-                tent = combine_min(local_sweep(tent, in_s, light=False), tent)
-                _, _, nxt = scan_bucket(tent, explored, i, delta=delta)
-                i = int(lay.reduce(nxt.reshape(1), dist.ReduceOp.MIN))
+                tent = combine_min(local_sweep(tent, in_s, False, edges),
+                                   tent)
+                i = int(next_bucket(tent, explored, i))
                 outer += 1
             return tent, outer, inner
 
@@ -231,6 +281,7 @@ def build_solver_from_meta(*, n_nodes: int, shard_nodes: int, mesh=None,
         inner = lay.max_all(max((r[2] for r in runs), default=0), dev)
         return lay.gather(local, n), outer, inner
 
+    solve.step = step
     return solve
 
 
@@ -260,8 +311,16 @@ def build_distributed_solver(partition: VertexPartition, mesh=None,
     return solve
 
 
+def input_specs_sssp(n_sources: int, n_nodes: int, device="meta"):
+    """Stand-ins for the SSSP dry run: tensors without data (``meta``; a
+    FakeTensor where a fake mode is active)."""
+    return dict(sources=torch.empty((n_sources,), dtype=torch.int32,
+                                    device=device))
+
+
 __all__ = [
     "DistDeltaConfig",
     "build_distributed_solver",
     "build_solver_from_meta",
+    "input_specs_sssp",
 ]

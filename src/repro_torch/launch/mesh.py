@@ -57,10 +57,13 @@ def _mesh(device_type, shape, dims) -> DeviceMesh:
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=dims)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The 256- or 512-rank mesh (``device_type`` ``cpu`` for the dry
+    run's fake tensors on the CPU)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     dims = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh("cuda", shape, dims)
+    return _mesh(device_type, shape, dims)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> DeviceMesh:

@@ -18,9 +18,11 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import DLRMConfig, _torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.models.embedding import sharded_lookup
 from repro_torch.models.gnn import _mlp, _mlp_init
 from repro_torch.models.layers import check_loaded, load_tree
 from repro_torch.models.sharding import constrain
@@ -58,8 +60,12 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator, device=None):
 
 
 def _lookup(table, ids):
-    return torch.index_select(table, 0,
-                              torch.clamp(ids.long(), 0, table.shape[0] - 1))
+    ids = torch.clamp(ids.long(), 0, table.shape[0] - 1)
+    if isinstance(table, DTensor):
+        # under sharding rules each rank looks up its own block of rows;
+        # the partial rows are reduced where the lookup ends
+        return constrain(sharded_lookup(table, ids), "dp", None)
+    return torch.index_select(table, 0, ids)
 
 
 def _interact_dot(feats):
@@ -67,6 +73,15 @@ def _interact_dot(feats):
     with the strictly-lower-triangular pairwise dot products (in
     ``tril_indices(F, k=-1)`` order)."""
     b, f, d = feats.shape
+    if isinstance(feats, DTensor):
+        # on each rank's own batch rows (the card's torch 2.11 has no
+        # index_put rule for the pair gather's backward)
+        mesh = feats.device_mesh
+        want = [p if p == Shard(0) else Replicate() for p in feats.placements]
+        out = _interact_dot(feats.redistribute(mesh, want).to_local())
+        width = d + f * (f - 1) // 2
+        return DTensor.from_local(out, mesh, want, run_check=False,
+                                  shape=(b, width), stride=(width, 1))
     z = torch.einsum("bfd,bgd->bfg", feats, feats)
     iu, ju = torch.tril_indices(f, f, offset=-1, device=feats.device)
     return torch.cat([feats[:, 0], z[:, iu, ju]], dim=-1)

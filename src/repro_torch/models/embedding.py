@@ -14,7 +14,10 @@ deterministic on CUDA under ``torch.use_deterministic_algorithms``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 def take_fill(table, idx, fill: float = 0.0):
@@ -31,6 +34,47 @@ def take_fill(table, idx, fill: float = 0.0):
                        rows, fill)
 
 
+def sharded_lookup(table, ids):
+    """``table[ids]`` for a DTensor ``table`` (rows split over some mesh
+    dims, columns over others), on local tensors: each rank gathers the
+    ids that fall in its own block of rows and zeros for the others, so
+    the rows are the sum over the dims that split them (a ``Partial``
+    placement, reduced by the caller's next layout). The ids are gathered
+    whole over those dims; their other splits carry over to the output,
+    and a column split becomes a split of its last dim. (DTensor's own
+    rules for an indexing into a row-split table fail on the card's torch
+    2.11 in the backward, and its masked embedding fails on batch-split
+    ids.)"""
+    from repro_torch.models.sharding import block_of
+
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    id_want, out = [], []
+    for tp, ip in zip(table.placements, ids.placements):
+        if tp == Shard(0):
+            id_want.append(Replicate())
+            out.append(Partial())
+        elif tp == Shard(1):
+            id_want.append(Replicate())
+            out.append(Shard(ids.ndim))
+        else:
+            id_want.append(ip)
+            out.append(ip)
+    local_ids = ids.redistribute(mesh, id_want).to_local().long()
+    start, rows_here = block_of(table, 0)
+    rel = local_ids - start
+    inside = (rel >= 0) & (rel < rows_here)
+    rows = table.to_local()[torch.where(inside, rel, 0)]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    full = tuple(ids.shape) + (table.shape[1],)
+    stride = tuple(math.prod(full[i + 1:]) for i in range(len(full)))
+    return DTensor.from_local(rows, mesh, out, run_check=False, shape=full,
+                              stride=stride)
+
+
 def _segment_ids(ids, n: int):
     ids = ids.long()
     return torch.where((ids >= 0) & (ids < n), ids, n)
@@ -45,7 +89,17 @@ def segment_sum(x, ids, n: int):
 
 def segment_max(x, ids, n: int):
     """``jax.ops.segment_max(x, ids, num_segments=n)``: an empty segment
-    is ``-inf``; ids outside ``[0, n)`` are dropped."""
+    is ``-inf``; ids outside ``[0, n)`` are dropped. A DTensor ``x``
+    (under sharding rules) is reduced on whole operands: DTensor has no
+    rule for ``scatter_reduce`` (a replicate detour)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        ids = (ids if isinstance(ids, DTensor) else DTensor.from_local(
+            ids, mesh, whole, run_check=False))
+        out = segment_max(x.redistribute(mesh, whole).to_local(),
+                          ids.redistribute(mesh, whole).to_local(), n)
+        return DTensor.from_local(out, mesh, whole, run_check=False)
     out = torch.full((n + 1,) + x.shape[1:], float("-inf"), dtype=x.dtype,
                      device=x.device)
     idx = _segment_ids(ids, n).reshape((-1,) + (1,) * (x.ndim - 1))

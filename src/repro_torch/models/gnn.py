@@ -20,15 +20,18 @@ from __future__ import annotations
 
 import math
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import GNNConfig, _torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models.embedding import segment_max, segment_sum, take_fill
 from repro_torch.models.layers import _dense_init, check_loaded, load_tree
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import _reinstalled, as_dtensor, constrain
 
 
 class Dense(nn.Module):
@@ -154,6 +157,23 @@ def _edge_softmax(scores, dst, n):
 
 
 def apply_gat(params, cfg: GNNConfig, x, src, dst):
+    w0 = params.layers[0].w
+    if isinstance(w0, DTensor):
+        # under sharding rules DTensor lays the heads' reshapes out in
+        # strided shards that it cannot fold into the next op: every rank
+        # runs the whole GAT on whole operands (a replicate detour)
+        mesh = w0.device_mesh
+        whole = [Replicate()] * mesh.ndim
+
+        def loc(t):
+            return as_dtensor(t, mesh).redistribute(mesh, whole).to_local()
+
+        local = SimpleNamespace(layers=[SimpleNamespace(
+            w=loc(lp.w), a_src=loc(lp.a_src), a_dst=loc(lp.a_dst))
+            for lp in params.layers])
+        with _reinstalled(None):
+            h = apply_gat(local, cfg, loc(x), loc(src), loc(dst))
+        return DTensor.from_local(h, mesh, whole, run_check=False)
     n = x.shape[0]
     n_layers = len(params.layers)
     h = x

@@ -20,9 +20,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.sharding import constrain, local_blocks
+from repro_torch.models.sharding import (
+    as_dtensor,
+    block_of,
+    constrain,
+    constrain_spec,
+    local_blocks,
+    logical_ways,
+    pin_grad,
+)
 
 # ----------------------------------------------------------------- init utils
 
@@ -113,9 +121,11 @@ def _softcap(x, cap: Optional[float]):
     return cap * torch.tanh(x / cap)
 
 
-def _mask(qpos, t: int, device, *, causal: bool, window, kv_len):
-    """(..., T) bool: causal order, the window and ``kv_len``."""
-    kpos = torch.arange(t, device=device)
+def _mask(qpos, t: int, device, *, causal: bool, window, kv_len,
+          start: int = 0):
+    """(..., T) bool: causal order, the window and ``kv_len``, for the
+    keys at positions ``start .. start + T - 1``."""
+    kpos = start + torch.arange(t, device=device)
     mask = torch.ones(qpos.shape[:-1] + (t,), dtype=torch.bool,
                       device=device)
     if causal:
@@ -145,6 +155,10 @@ def gqa_attention(q, k, v, *, q_offset: int, causal: bool = True,
     t, hk = k.shape[1], k.shape[2]
     g = h // hk
     scale = dh ** -0.5
+    if s == 1 and isinstance(k, DTensor):
+        return _decode_split_kv(q, k, v, q_offset=q_offset, causal=causal,
+                                window=window, softcap=softcap,
+                                kv_len=kv_len)
     kf, vf = k.float(), v.float()
     if g > 1 and s == 1:
         # decode: a grouped einsum, K/V never repeated
@@ -159,8 +173,10 @@ def gqa_attention(q, k, v, *, q_offset: int, causal: bool = True,
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
         return out.to(q.dtype).reshape(b, 1, h, dh)
     if g > 1:
-        kf = constrain(kf.repeat_interleave(g, dim=2), "dp", None, "tp", None)
-        vf = constrain(vf.repeat_interleave(g, dim=2), "dp", None, "tp", None)
+        kf = constrain_spec(kf.repeat_interleave(g, dim=2),
+                            ("dp", None, "tp", None))
+        vf = constrain_spec(vf.repeat_interleave(g, dim=2),
+                            ("dp", None, "tp", None))
 
     def attend(q, kf, vf):
         def block(q_blk, off: int):
@@ -188,6 +204,52 @@ def gqa_attention(q, k, v, *, q_offset: int, causal: bool = True,
     # scores into a batched product)
     (q, kf, vf), back = local_blocks(q, kf, vf)
     return back(attend(q, kf, vf))
+
+
+def _decode_split_kv(q, k, v, *, q_offset: int, causal: bool, window,
+                     softcap, kv_len):
+    """One decode query against a DTensor cache whose sequence is split
+    over mesh dims (the reference's flash-decoding layout): each rank
+    attends over its own block of the cache on local tensors, and the
+    blocks' partial softmaxes (max, sum, weighted values) are combined
+    over the dims that split the sequence. The cache's batch split is
+    kept, its head split gathered; the query follows the cache's batch
+    split. Returns a DTensor laid out as the query block."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = k.device_mesh
+    seq = [i for i, p in enumerate(k.placements) if p == Shard(1)]
+    kv_want = [p if p in (Shard(0), Shard(1)) else Replicate()
+               for p in k.placements]
+    q_want = [p if p == Shard(0) else Replicate() for p in k.placements]
+    kl = k.redistribute(mesh, kv_want).to_local().float()
+    vl = v.redistribute(mesh, kv_want).to_local().float()
+    ql = as_dtensor(q, mesh).redistribute(mesh, q_want).to_local()
+    first, t = block_of(k, 1)
+    b, _, h, dh = ql.shape
+    hk = kl.shape[2]
+    qg = ql.reshape(b, 1, hk, h // hk, dh).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kl) * dh ** -0.5
+    scores = _softcap(scores, softcap)
+    qpos = torch.full((1, 1), q_offset, device=ql.device)
+    mask = _mask(qpos, t, ql.device, causal=causal, window=window,
+                 kv_len=kv_len, start=first)
+    scores = scores.masked_fill(~mask, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)                 # (b, hk, g, 1, 1)
+    top = m
+    for i in seq:
+        top = funcol.all_reduce(top, "max", mesh.get_group(i))
+    p = torch.exp(scores - top)
+    num = torch.einsum("bhgqk,bkhd->bqhgd", p, vl)
+    den = p.sum(dim=-1, keepdim=True).permute(0, 3, 1, 2, 4)
+    for i in seq:
+        num = funcol.all_reduce(num, "sum", mesh.get_group(i))
+        den = funcol.all_reduce(den, "sum", mesh.get_group(i))
+    out = (num / den).to(ql.dtype).reshape(b, 1, h, dh)
+    shape = (q.shape[0], 1, h, dh)
+    return DTensor.from_local(out.contiguous(), mesh, q_want,
+                              run_check=False, shape=shape,
+                              stride=(h * dh, h * dh, dh, 1))
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -247,6 +309,52 @@ def init_attention(cfg, dtype, generator: torch.Generator,
     return Attention(cfg, dtype, generator, device)
 
 
+def _split_heads(x, n: int, hd: int):
+    """(B, S, n·hd) → (B, S, n, hd). Under sharding rules a last dim
+    split over more ranks than divide ``n`` is gathered first (DTensor
+    cannot unflatten an uneven split of the heads)."""
+    b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        ways = 1
+        for place, size in zip(x.placements, x.device_mesh.shape):
+            if place == Shard(2):
+                ways *= size
+        if n % ways:
+            x = constrain(x, "dp", None, None)
+    return x.reshape(b, s, n, hd)
+
+
+def _write_cache(c, start: int, new):
+    """``c[:, start:start + S] = new`` in place. A DTensor cache is
+    written on each rank's own block of its sequence (DTensor writes a
+    slice of a split dim into a copy, not into the cache)."""
+    s = new.shape[1]
+    if not isinstance(c, DTensor):
+        c[:, start:start + s] = new.to(c.dtype)
+        return
+    mesh = c.device_mesh
+    want = [Replicate() if p == Shard(1) else p for p in c.placements]
+    rows = as_dtensor(new.to(c.dtype), mesh).redistribute(mesh,
+                                                          want).to_local()
+    first, size = block_of(c, 1)
+    lo, hi = max(start, first), min(start + s, first + size)
+    if lo < hi:
+        c.to_local()[:, lo - first:hi - first] = rows[:, lo - start:hi - start]
+
+
+def _merge_heads(x):
+    """(B, S, n, hd) → (B, S, n·hd). Under sharding rules, where the
+    heads do not divide over tp the gradient of the merged dim (split
+    over tp by the output product) is laid out as the forward's before
+    it reaches the view's backward (DTensor cannot unflatten an uneven
+    split)."""
+    b, s, n, hd = x.shape
+    y = x.reshape(b, s, n * hd)
+    if isinstance(y, DTensor) and n % logical_ways("tp"):
+        y = pin_grad(y)
+    return y
+
+
 def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
                     kv_cache=None, cache_len: Optional[int] = None):
     """Returns ``(out, new_kv)``: ``new_kv`` is ``(k, v)`` of this call's
@@ -257,12 +365,15 @@ def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
     b, s, _ = x.shape
     hd = cfg.head_dim_
     offset = cache_len if cache_len is not None else 0
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
-    q = constrain(q, "dp", None, "tp", None)
-    k = constrain(k, "dp", None, "tp", None)
-    v = constrain(v, "dp", None, "tp", None)
+    q = _split_heads(x @ p.wq, cfg.n_heads, hd)
+    k = _split_heads(x @ p.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p.wv, cfg.n_kv_heads, hd)
+    # heads split over tp only where it divides them (yi-34b's 56 heads
+    # and MQA's one K/V head stay whole on a 16-wide tp: DTensor cannot
+    # fold an uneven split of the heads into a later view)
+    q = constrain_spec(q, ("dp", None, "tp", None))
+    k = constrain_spec(k, ("dp", None, "tp", None))
+    v = constrain_spec(v, ("dp", None, "tp", None))
     positions = offset + torch.arange(s, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
@@ -270,8 +381,8 @@ def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
     if kv_cache is not None:
         ck, cv = kv_cache
         start = max(0, min(cache_len, ck.shape[1] - s))
-        ck[:, start:start + s] = k.to(ck.dtype)
-        cv[:, start:start + s] = v.to(cv.dtype)
+        _write_cache(ck, start, k)
+        _write_cache(cv, start, v)
         out = gqa_attention(q, ck, cv, q_offset=offset,
                             window=window_arr, softcap=cfg.attn_softcap,
                             kv_len=cache_len + s,
@@ -282,5 +393,5 @@ def attention_apply(p, cfg, x, *, window_arr: Optional[int] = None,
                             softcap=cfg.attn_softcap,
                             chunk=cfg.attention_chunk)
         new_kv = (k, v)
-    out = out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+    out = _merge_heads(out) @ p.wo
     return out, new_kv

@@ -63,6 +63,14 @@ def init_moe(cfg, dtype, generator: torch.Generator, device) -> MoE:
     return MoE(cfg, dtype, generator, device)
 
 
+def expert_counts(ids_flat, e: int):
+    """``torch.bincount(ids_flat, minlength=e)`` with a static shape (a
+    fake tensor cannot give bincount's data-dependent length)."""
+    ones = torch.ones_like(ids_flat, dtype=torch.int64)
+    return torch.zeros(e, dtype=torch.int64, device=ids_flat.device
+                       ).index_add_(0, ids_flat.long(), ones)
+
+
 def route(p, cfg, xt):
     """The router and the capacity bookkeeping of ``moe_apply`` for
     tokens ``xt`` (T, d): ``(probs, gate, ids_flat, order, counts,
@@ -83,7 +91,7 @@ def route(p, cfg, xt):
     ids_flat = ids.reshape(-1)                             # (TK,)
     order = torch.argsort(ids_flat, stable=True)
     sorted_ids = ids_flat[order]
-    counts = torch.bincount(ids_flat, minlength=e)         # (E,)
+    counts = expert_counts(ids_flat, e)                   # (E,)
     starts = torch.searchsorted(sorted_ids,
                                 torch.arange(e, device=xt.device))
     cap = max(1, int(t * k / e * m.capacity_factor))

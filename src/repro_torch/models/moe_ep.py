@@ -36,6 +36,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.layers import _act
+from repro_torch.models.moe import expert_counts
 from repro_torch.models.sharding import (
     _RULES,
     _translate,
@@ -276,7 +277,7 @@ def moe_apply_ep(p, cfg, x):
     ids_flat = ids.reshape(-1)
     order = torch.argsort(ids_flat, stable=True)
     sorted_ids = ids_flat[order]
-    counts = torch.bincount(ids_flat, minlength=e)
+    counts = expert_counts(ids_flat, e)
     starts = torch.searchsorted(sorted_ids, torch.arange(e, device=dev))
     aux = m.router_aux_weight * e * torch.sum(
         probs.mean(0) * counts.float() / tk)

@@ -31,6 +31,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
@@ -210,6 +211,40 @@ def constrain_spec(x, spec):
     return _redistribute(rules, x, P(*out))
 
 
+def logical_ways(name: str) -> int:
+    """How many ways the installed rules split a dim named ``name`` (1
+    outside a context)."""
+    rules = _RULES.get()
+    ax = None if rules is None else _translate(rules, name)
+    if ax is None:
+        return 1
+    return math.prod(axis_size(rules.mesh, a)
+                     for a in (ax if isinstance(ax, tuple) else (ax,)))
+
+
+class _PinGrad(torch.autograd.Function):
+    """The identity; its backward lays the gradient out as the input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, want = ctx.layout
+        g = as_dtensor(g, mesh)
+        return g if tuple(g.placements) == want else g.redistribute(
+            mesh, list(want))
+
+
+def pin_grad(x):
+    """``x``, whose gradient is laid out as ``x`` itself (a DTensor;
+    anything else is returned as it is): for a view whose backward cannot
+    take the layout the next op's backward gives."""
+    return _PinGrad.apply(x) if isinstance(x, DTensor) else x
+
+
 def current_mesh() -> Optional[DeviceMesh]:
     rules = _RULES.get()
     return rules.mesh if rules else None
@@ -239,6 +274,20 @@ def local_blocks(x, *others, dims=(0, 2)):
     return blocks, back
 
 
+def block_of(x, dim: int) -> tuple:
+    """``(offset, size)`` of this rank's block of a DTensor's ``dim``: the
+    splits over mesh dims in mesh order, each as ``torch.chunk`` (plain
+    arithmetic, no tensor: it runs under fake tensors too)."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    size, offset = x.shape[dim], 0
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            chunk = -(-size // mesh.size(i))
+            offset += coord[i] * chunk
+            size = max(0, min(chunk, size - coord[i] * chunk))
+    return offset, size
+
+
 def full(x):
     """A DTensor's whole value on every rank (gathered; gradients flow
     back to its shards), a plain tensor itself."""
@@ -246,7 +295,8 @@ def full(x):
 
 
 __all__ = ["DEFAULT_MAPPING", "P", "PartitionSpec", "ShardingRules",
-           "as_dtensor", "axis_names", "axis_size", "constrain",
+           "as_dtensor", "axis_names", "axis_size", "block_of", "constrain",
            "constrain_spec", "current_mesh", "full", "local_blocks",
+           "logical_ways", "pin_grad",
            "placements", "recompute_context",
            "sharding_rules", "trim"]

@@ -42,11 +42,13 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.embedding import sharded_lookup
 from repro_torch.models.layers import (
     _dense_init,
     attention_apply,
@@ -217,7 +219,11 @@ def _logits(params, cfg: LMConfig, x):
 
 
 def _embed(params, cfg: LMConfig, tokens):
-    return constrain(params.embed[tokens].to(cfg.adtype), "dp", None, None)
+    table = params.embed
+    # under sharding rules each rank looks up its own block of rows
+    x = (sharded_lookup(table, tokens) if isinstance(table, DTensor)
+         else table[tokens])
+    return constrain(x.to(cfg.adtype), "dp", None, None)
 
 
 def apply_lm(params, cfg: LMConfig, tokens):

@@ -12,7 +12,9 @@ factors 4.0 and 1.25 and with ``impl="dense"``; the gradient of
 ``lm_loss`` through the region; ``moe_apply_ep`` on one layer at a
 sequence-parallel and a decode-sized token block, with its gradients;
 the yi-34b smoke LM (the port's own seeded weights) under the rules
-against the unsharded model; one AdamW train step under the rules and
+against the unsharded model; a gemma2-9b smoke decode step against a
+cache whose sequence is split over ranks (flash-decoding) against the
+plain step; one AdamW train step under the rules and
 its state re-meshed onto ``(1, 2)``. Saves the results (numpy arrays)
 to ``OUT`` (pickle). Imports no JAX. Every collective times out after
 ``COLLECTIVE_TIMEOUT``, so a hang fails fast.
@@ -36,6 +38,7 @@ from repro_torch.configs.base import LMConfig, MoEConfig  # noqa: E402
 from repro_torch.distributed import make_mesh_from, remesh  # noqa: E402
 from repro_torch.models.moe_ep import moe_apply_ep  # noqa: E402
 from repro_torch.models.param_sharding import (  # noqa: E402
+    cache_specs,
     distribute,
     lm_param_specs,
     state_specs_like,
@@ -44,7 +47,10 @@ from repro_torch.models.param_sharding import (  # noqa: E402
 from repro_torch.models.sharding import constrain, sharding_rules  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     apply_lm,
+    decode_step,
+    init_cache,
     init_lm,
+    prefill,
     lm_loss,
     params_from_jax,
 )
@@ -66,6 +72,7 @@ TOKENS = (4, 16)
 LOSS_CHUNK = 16
 LAYER_CF = 1.25
 LAYER_SHAPES = {"scatter": (4, 16), "allreduce": (2, 1)}
+DECODE_SLOTS = 64
 SEED = 0
 
 
@@ -167,6 +174,46 @@ def dense_smoke(mesh, out):
         out["smoke_rules"] = (full(logits), own(loss))
 
 
+def decode_smoke(mesh, out):
+    """The gemma2-9b smoke LM (grouped heads, windows, softcaps): one
+    decode step at the last slot of a seeded cache under the rules, the
+    cache's sequence split over ``model`` and its batch over ``data``
+    (``decode``), then long-context, the sequence over every mesh dim and
+    the batch whole (``decode_long``), against the plain step."""
+    cfg = get_config("gemma2-9b", smoke=True)
+    gen = torch.Generator().manual_seed(SEED)
+    for name, batch, mapping in (
+            ("decode", 2, MAPPING),
+            ("decode_long", 1, dict(MAPPING, dp=None, sp=NAMES))):
+        model = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        cache = init_cache(cfg, batch, DECODE_SLOTS, device="cpu")
+        for key in ("k", "v"):
+            cache[key].copy_(torch.randn(cache[key].shape, generator=gen))
+        cache["len"] = DECODE_SLOTS - 1
+        tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen)
+        plain = decode_step(model, cfg, dict(
+            cache, k=cache["k"].clone(), v=cache["v"].clone()), tok)[0]
+        distribute(model, lm_param_specs(model), mesh, mapping)
+        placed = distribute(cache, cache_specs(name == "decode_long"), mesh,
+                            mapping)
+        with sharding_rules(mesh, mapping):
+            got = decode_step(model, cfg, placed, tok)[0]
+        out[name] = (full(plain), full(got))
+    # a prefill writes its prompt's K/V into the split cache
+    model = init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    cache = init_cache(cfg, 2, DECODE_SLOTS, device="cpu")
+    plain, plain_cache = prefill(model, cfg, prompt, dict(
+        cache, k=cache["k"].clone(), v=cache["v"].clone()))
+    distribute(model, lm_param_specs(model), mesh, MAPPING)
+    placed = distribute(cache, cache_specs(), mesh, MAPPING)
+    with sharding_rules(mesh, MAPPING):
+        got, got_cache = prefill(model, cfg, prompt, placed)
+    out["prefill"] = ((full(plain), full(plain_cache["k"]),
+                       full(plain_cache["v"])),
+                      (full(got), full(got_cache["k"]), full(got_cache["v"])))
+
+
 def train_and_remesh(mesh, model, toks, out):
     """One AdamW step under the rules, then its state onto ``NEW_MESH``."""
     cfg = lm_config(LMConfig, MoEConfig, "ep", CFS[0])
@@ -205,6 +252,7 @@ def main(rank: int, world: int, store: str, inputs: str, out: str) -> None:
     res = {"coord": tuple(mesh.get_coordinate())}
     model = ep_lm(mesh, data, tree, toks, res)
     dense_smoke(mesh, res)
+    decode_smoke(mesh, res)
     train_and_remesh(mesh, model, toks, res)
     with open(out, "wb") as f:
         pickle.dump(res, f)

@@ -87,6 +87,11 @@ def test_port_has_modules_to_scan():
                  "src/repro_torch/models/param_sharding.py",
                  "src/repro_torch/models/moe_ep.py",
                  "src/repro_torch/distributed/elastic.py",
+                 "src/repro_torch/analysis/trace.py",
+                 "src/repro_torch/analysis/roofline.py",
+                 "src/repro_torch/analysis/report_md.py",
+                 "src/repro_torch/launch/cells.py",
+                 "src/repro_torch/launch/dryrun.py",
                  "examples/torch_train_lm.py",
                  "examples/torch_quickstart.py",
                  "examples/torch_multi_source_sssp.py",

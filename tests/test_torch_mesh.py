@@ -15,7 +15,9 @@ dense formulation on each data rank's own block of tokens (the kept
 pairs), with picks dropped; one layer's region at a sequence-parallel
 and a decode-sized token block with its gradients, and the gradient of
 ``lm_loss`` through the region, against JAX's; the dense-impl MoE LM
-and the yi-34b smoke LM under the rules against the unsharded port;
+and the yi-34b smoke LM under the rules against the unsharded port; a
+gemma2-9b smoke decode step over a cache whose sequence is split over
+the model dim, or over both dims, against the plain step;
 every rank's parameter shards bitwise equal to the block JAX places on
 the device at the same mesh coordinate; one AdamW train step under the
 rules and its state re-meshed onto ``(1, 2)`` bitwise. Tolerances are
@@ -184,6 +186,29 @@ def test_lms_under_rules_match_unsharded(group):
             (a, a_aux), (b, b_aux) = r[f"{name}_rules"], r[name]
             _close(a, b, f"{name} logits")
             _close(a_aux, b_aux, f"{name} aux/loss")
+
+
+@pytest.mark.parametrize("name", ["decode", "decode_long"])
+def test_decode_over_a_split_cache_matches_plain(group, name):
+    """A decode step whose cache sequence is split over the model dim
+    (batch over data), or over both dims: each rank attends over its own
+    block and the partial softmaxes are combined across the ranks."""
+    got, _, _ = group
+    for r in got:
+        plain, split = r[name]
+        assert np.isfinite(split).all()
+        _close(split, plain, f"{name} logits")
+
+
+def test_prefill_into_a_split_cache_matches_plain(group):
+    """A prefill under the rules writes the prompt's K/V into the cache
+    whose sequence is split over the model dim, each rank its own block."""
+    got, _, _ = group
+    for r in got:
+        plain, split = r["prefill"]
+        for a, b, tag in zip(split, plain, ("logits", "k", "v")):
+            _close(a, b, f"prefill {tag}")
+        assert np.abs(plain[1][:, :, :16]).max() > 0
 
 
 def test_parameter_shards_bitwise_equal_jax_placement(group):
